@@ -1,0 +1,19 @@
+"""pecanpy-tpu on PyTorch and CUDA: node2vec walks and SGNS on one GPU.
+
+The port of ``pecanpy_tpu`` (JAX, TPU) to PyTorch, with the one Pallas
+kernel of its main path (the sparse-row table applier) rewritten as a
+hand-written CUDA kernel for Hopper (``csrc/apply.cu``). It imports torch
+and numpy, never jax; the JAX package stays the reference it is tested
+against.
+
+    >>> from pecanpy_tpu_torch import pecanpy
+    >>> g = pecanpy.SparseOTF(p=1, q=1, device="cuda")
+    >>> g.read_edg("karate.edg", weighted=False, directed=False)
+    >>> emb = g.embed(dim=128)
+"""
+
+from pecanpy_tpu_torch import graph  # noqa: F401
+from pecanpy_tpu_torch import pecanpy  # noqa: F401
+
+__version__ = "0.1.0"
+__all__ = ["graph", "pecanpy", "__version__"]

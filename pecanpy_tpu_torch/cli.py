@@ -1,0 +1,299 @@
+"""Command-line interface of the PyTorch port.
+
+The embedding task of ``pecanpy_tpu/cli.py`` with the same flag names,
+plus ``--device``: read the graph, walk, train SGNS, write the embeddings
+as ``.npz`` (keys IDs/data) or word2vec text. Only the SparseOTF and
+DenseOTF modes and the default task are ported; the other modes, tasks
+and options raise ``NotImplementedError`` naming ROADMAP.md.
+
+Example::
+
+    python -m pecanpy_tpu_torch.cli --input demo/karate.edg \\
+        --output karate.emb --mode SparseOTF --device cuda
+"""
+import argparse
+import warnings
+
+import numpy as np
+
+from pecanpy_tpu_torch import pecanpy
+from pecanpy_tpu_torch.wrappers import Timer
+
+PORTED_MODES = ("SparseOTF", "DenseOTF")
+ROADMAP = "see ROADMAP.md, 'Modules to port'"
+
+
+def parse_args(argv=None):
+    """Parse node2vec arguments (the JAX package's flag names)."""
+    parser = argparse.ArgumentParser(
+        description="Run the PyTorch/CUDA port of pecanpy-tpu "
+        "(node2vec(+) walks and SGNS on one GPU)",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    parser.add_argument(
+        "--input", required=True, help="Path to the input graph (.edg edgelist or .npz CSR/dense)."
+    )
+    parser.add_argument(
+        "--output",
+        required=True,
+        help="Where to write the embeddings: a .npz archive when the path "
+        "ends in .npz, word2vec text format otherwise.",
+    )
+    parser.add_argument(
+        "--task",
+        default="pecanpy",
+        choices=["pecanpy", "tocsr", "todense", "walks"],
+        help="Pipeline to run; only the full embedding task is ported.",
+    )
+    parser.add_argument(
+        "--mode",
+        default="SparseOTF",
+        choices=[
+            "DenseOTF",
+            "FirstOrderUnweighted",
+            "PreComp",
+            "PreCompFirstOrder",
+            "SparseOTF",
+        ],
+        help="Walk engine variant; SparseOTF and DenseOTF are ported.",
+    )
+    parser.add_argument(
+        "--dimensions", type=int, default=128, help="Embedding dimensionality."
+    )
+    parser.add_argument(
+        "--walk-length", type=int, default=80, help="Steps taken by each walk."
+    )
+    parser.add_argument(
+        "--num-walks", type=int, default=10, help="Walks started from every node."
+    )
+    parser.add_argument(
+        "--window-size", type=int, default=10, help="Skip-gram context window radius."
+    )
+    parser.add_argument(
+        "--epochs", type=int, default=1, help="Number of SGNS training epochs."
+    )
+    parser.add_argument(
+        "--workers", type=int, default=0, help="Kept for flag parity; unused."
+    )
+    parser.add_argument("--p", type=float, default=1, help="node2vec return parameter (bias 1/p toward the previous node).")
+    parser.add_argument("--q", type=float, default=1, help="node2vec in-out parameter (bias 1/q on outward edges).")
+    parser.add_argument(
+        "--weighted", action="store_true", help="Treat the third edgelist column as edge weights."
+    )
+    parser.add_argument(
+        "--directed", action="store_true", help="Keep edges one-directional (default inserts both directions)."
+    )
+    parser.add_argument(
+        "--verbose", action="store_true", help="Print stage timings and progress."
+    )
+    parser.add_argument(
+        "--extend", action="store_true", help="Enable the node2vec+ extended transition weights."
+    )
+    parser.add_argument(
+        "--gamma", type=float, default=0, help="node2vec+ noise-threshold std multiplier."
+    )
+    parser.add_argument(
+        "--random_state",
+        type=int,
+        default=None,
+        help="Seed for the walk and training generators and the start-node shuffle.",
+    )
+    parser.add_argument(
+        "--delimiter", type=str, default="\t", help="Column separator of the edgelist file."
+    )
+    parser.add_argument(
+        "--implicit_ids",
+        action="store_true",
+        help="Number nodes 0..N-1 instead of reading an IDs array.",
+    )
+    parser.add_argument(
+        "--degree-cap",
+        type=int,
+        default=None,
+        help="Max degree of the fused rows (default 128; 0 disables "
+        "capping). Graphs above it need the hub path, not ported yet.",
+    )
+    parser.add_argument(
+        "--walker-batch",
+        type=int,
+        default=None,
+        help="Walkers advanced together (default 131072).",
+    )
+    parser.add_argument(
+        "--table-dtype",
+        choices=["auto", "float32", "bfloat16"],
+        default="auto",
+        help="Embedding-table dtype. 'auto' picks bfloat16 (stochastic-"
+        "rounding updates) on a GPU above 16M table elements, float32 "
+        "otherwise.",
+    )
+    parser.add_argument(
+        "--streaming",
+        choices=["auto", "on", "off"],
+        default="auto",
+        help="Stream walks into training. auto: on above ~1e8 tokens.",
+    )
+    parser.add_argument("--profile", metavar="DIR", default=None, help="Not ported yet.")
+    parser.add_argument(
+        "--trainer",
+        choices=["tpu", "sequential"],
+        default="tpu",
+        help="SGNS implementation: 'tpu' is the batched device trainer "
+        "(here on --device); 'sequential' is not ported yet.",
+    )
+    parser.add_argument("--checkpoint-dir", default=None, help="Not ported yet.")
+    parser.add_argument(
+        "--checkpoint-every", type=int, default=100, help="Not ported yet."
+    )
+    parser.add_argument(
+        "--max-steps",
+        type=int,
+        default=None,
+        help="Stop training after this many chunk-steps (the lr schedule "
+        "stays pinned to the full plan).",
+    )
+    parser.add_argument(
+        "--devices", type=int, default=None, help="Only 1 is ported."
+    )
+    parser.add_argument(
+        "--model-parallel", type=int, default=1, help="Only 1 is ported."
+    )
+    parser.add_argument(
+        "--partition",
+        type=str,
+        default="auto",
+        choices=("auto", "replicated", "edge"),
+        help="Multi-device graph layout; not ported yet.",
+    )
+    parser.add_argument(
+        "--device",
+        default="cuda",
+        help="Torch device to run on: 'cuda' (default) or 'cpu'.",
+    )
+    return parser.parse_args(argv)
+
+
+def _reject_unported(args):
+    if args.task != "pecanpy":
+        raise NotImplementedError(f"--task {args.task} is not ported yet ({ROADMAP})")
+    if args.mode not in PORTED_MODES:
+        raise NotImplementedError(f"--mode {args.mode} is not ported yet ({ROADMAP})")
+    if args.profile:
+        raise NotImplementedError(f"--profile is not ported yet ({ROADMAP})")
+
+
+def check_mode(g, args):
+    """Recommend better modes (the JAX CLI's decision table, restricted to
+    the ported modes' advice)."""
+    mode, weighted, p, q = args.mode, args.weighted, args.p, args.q
+    if p == q == 1:
+        warnings.warn(
+            f"p = q = 1 makes the walk first-order: FirstOrderUnweighted or "
+            f"PreCompFirstOrder (not ported yet) would be faster than {mode}"
+            + ("" if weighted else " on this unweighted graph"),
+            stacklevel=2,
+        )
+        return
+    dens = g.density
+    if dens >= 0.2 and mode != "DenseOTF":
+        warnings.warn(
+            f"density {dens:.3f} >= 0.2: DenseOTF usually beats the "
+            f"selected {mode} on graphs this dense",
+            stacklevel=2,
+        )
+    if 0.001 <= dens < 0.2 and mode != "SparseOTF":
+        warnings.warn(
+            f"density {dens:.3f} sits in SparseOTF's sweet spot "
+            f"(0.001-0.2); consider it over the selected {mode}",
+            stacklevel=2,
+        )
+
+
+@Timer("load Graph")
+def read_graph(args):
+    """Load the input network into the selected mode."""
+    if args.directed and args.extend:
+        raise NotImplementedError(
+            "Node2vec+ not implemented for directed graph yet."
+        )
+    if args.extend and not args.weighted:
+        print("NOTE: node2vec+ is equivalent to node2vec for unweighted graphs.")
+
+    mode_cls = getattr(pecanpy, args.mode)
+    extra = {}
+    if args.degree_cap is not None:
+        extra["degree_cap"] = args.degree_cap if args.degree_cap > 0 else None
+    if args.walker_batch is not None:
+        extra["walker_batch"] = args.walker_batch
+    g = mode_cls(
+        p=args.p,
+        q=args.q,
+        workers=args.workers,
+        verbose=args.verbose,
+        extend=args.extend,
+        gamma=args.gamma,
+        random_state=args.random_state,
+        device=args.device,
+        **extra,
+    )
+    if args.input.endswith(".npz"):
+        g.read_npz(args.input, args.weighted, implicit_ids=args.implicit_ids)
+    else:
+        g.read_edg(args.input, args.weighted, args.directed, args.delimiter)
+    check_mode(g, args)
+    return g
+
+
+def save_embeddings(path: str, node_ids, embeddings: np.ndarray):
+    """Write embeddings as .npz (keys IDs/data) or word2vec text format:
+    a ``"<vocab> <dim>"`` header, then one ``<id> <v1> ... <vd>`` row per
+    node."""
+    if path.endswith(".npz"):
+        np.savez(path, IDs=node_ids, data=embeddings)
+        return
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(f"{len(node_ids)} {embeddings.shape[1]}\n")
+        for node_id, row in zip(node_ids, embeddings):
+            vec = " ".join(repr(float(v)) for v in row)
+            f.write(f"{node_id} {vec}\n")
+
+
+@Timer("pre-compute transition probabilities")
+def preprocess(g):
+    """Transition-probability preprocessing stage (timed)."""
+    g.preprocess_transition_probs()
+
+
+def main(argv=None):
+    """End-to-end pipeline: read -> preprocess -> walk + embed -> save."""
+    args = parse_args(argv)
+    _reject_unported(args)
+    g = read_graph(args)
+    preprocess(g)
+    total_tokens = g.num_nodes * args.num_walks * (args.walk_length + 1)
+    streaming = args.streaming == "on" or (
+        args.streaming == "auto"
+        and total_tokens > type(g).STREAMING_TOKEN_THRESHOLD
+    )
+    embeddings = Timer("walks + train embeddings", args.verbose)(g.embed)(
+        dim=args.dimensions,
+        num_walks=args.num_walks,
+        walk_length=args.walk_length,
+        window_size=args.window_size,
+        epochs=args.epochs,
+        verbose=args.verbose,
+        streaming=streaming,
+        table_dtype=args.table_dtype,
+        n_devices=args.devices,
+        model_parallel=args.model_parallel,
+        partition=args.partition,
+        trainer=args.trainer,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        max_steps=args.max_steps,
+    )
+    save_embeddings(args.output, g.nodes, embeddings)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,85 @@
+"""Build and bind the package's CUDA kernels (``csrc/*.cu``).
+
+The sources compile with ``nvcc`` into one shared library with a plain C
+interface, loaded with ctypes. The build runs at first use, never at
+import, into ``build/`` beside the package (a directory git ignores); the
+library's file name carries a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one is reused. A failed build raises.
+"""
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin, default "
+        "/usr/local/cuda): the CUDA toolkit is needed to build csrc/*.cu"
+    )
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, once per process."""
+    sources = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources + sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    lib_path = BUILD_DIR / f"libpecanpy_kernels_{digest.hexdigest()[:16]}.so"
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"kernel build failed ({' '.join(cmd)}):\n{proc.stderr}"
+            )
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    for name in ("pecanpy_apply_sorted_f32", "pecanpy_apply_sorted_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [
+            ctypes.c_void_p,  # table
+            ctypes.c_void_p,  # ids
+            ctypes.c_void_p,  # upd
+            ctypes.c_longlong,  # R
+            ctypes.c_longlong,  # N
+            ctypes.c_int,  # D
+            ctypes.c_uint,  # seed
+            ctypes.c_void_p,  # stream
+        ]
+        fn.restype = ctypes.c_int
+    lib.pecanpy_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pecanpy_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if code != 0:
+        msg = lib.pecanpy_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what} failed to launch: CUDA error {code} ({msg})")

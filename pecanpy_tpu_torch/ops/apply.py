@@ -1,0 +1,297 @@
+"""Sparse-row update application: ``table[i] -= lr * capped sum of rows``.
+
+Counterpart of ``pecanpy_tpu/ops/apply.py``. The SGNS step ends with two
+such updates per chunk-step (W_in, and W_out with two merged streams).
+
+On a CUDA table the update runs in two parts, as in the JAX package:
+
+1. stream prep in plain torch: a stable sort of the ids (or of the
+   composite keys ``id * 2 + stream`` when two streams merge), the
+   per-group scale ``lr * min(total, cap) / total`` from scans over the
+   sorted counts (``_sorted_scales``), and the payload gathered into
+   sorted order and scaled. After this, application is linear:
+   ``table -= sum of scaled rows``;
+2. ``apply_sorted_stream``: the hand-written CUDA kernel
+   (``csrc/apply.cu``, the port of the Pallas ``_applier_kernel``),
+   which updates the table IN PLACE, touching only the rows the stream
+   names. bf16 tables accumulate in f32 and write back with stochastic
+   rounding.
+
+On a CPU table ``apply_mean_updates`` / ``apply_mean_updates_two`` take
+the scatter path, the same one the JAX package takes without Pallas
+(``use_pallas=False``), and also write into the table in place.
+
+Known difference from the TPU kernel: the payload stays f32 here, where
+the TPU ships it as bf16 into bf16 one-hot matmuls (``DOT_BF16``). The
+port is therefore closer to the f32 scatter semantics.
+"""
+from typing import Union
+
+import torch
+
+from pecanpy_tpu_torch.ops import _kernels
+
+DEFAULT_UPDATE_CAP = 4.0  # max "pair-steps" a row absorbs per application
+_EPS = 1e-9
+_MASK32 = 0xFFFFFFFF
+
+Cap = Union[float, torch.Tensor]
+
+
+def _row_step(sums, cnts, lr, cap):
+    """-lr * sum * min(cnt, cap) / cnt per row (``_row_step`` of the JAX
+    package): rows with few contributions take the plain gradient sum,
+    hot rows are capped at ``cap`` pair-steps per application."""
+    scale = torch.clamp(cnts, max=cap) / torch.clamp(cnts, min=_EPS)
+    return lr * sums * scale
+
+
+def _apply_scatter(table, ids, upd, cnt, lr, cap):
+    """Scatter reference path, in place (the CPU path)."""
+    ids = ids.long()
+    t32 = table.to(torch.float32)
+    sums = torch.zeros_like(t32).index_add_(0, ids, upd.to(torch.float32))
+    cnts = torch.zeros(
+        table.shape[0], dtype=torch.float32, device=table.device
+    ).index_add_(0, ids, cnt.to(torch.float32))
+    table.copy_(t32 - _row_step(sums, cnts[:, None], lr, cap))
+    return table
+
+
+def _sorted_scales(keys_s, cnt_s, lr, cap: Cap):
+    """Entry-wise ``lr * min(total, cap) / total`` over a sorted stream.
+
+    ``total`` is the summed count of the entry's key group, found with
+    scans: the nearest group end at-or-right of i is a reversed cummin of
+    the inclusive cumsum masked to end positions, and the nearest group
+    start at-or-left is a cummax of the exclusive cumsum masked to start
+    positions. Exact for the integer-valued counts SGNS produces.
+    """
+    cnt_f = cnt_s.to(torch.float32)
+    cum = torch.cumsum(cnt_f, dim=0)  # inclusive
+    change = keys_s[1:] != keys_s[:-1]
+    true1 = torch.ones(1, dtype=torch.bool, device=keys_s.device)
+    start = torch.cat([true1, change])
+    end = torch.cat([change, true1])
+    inf = float("inf")
+    seg_lo = torch.cummax(torch.where(start, cum - cnt_f, -inf), dim=0).values
+    seg_hi = torch.cummin(
+        torch.where(end, cum, inf).flip(0), dim=0
+    ).values.flip(0)
+    tot = seg_hi - seg_lo
+    cap = torch.as_tensor(cap, dtype=torch.float32, device=tot.device)
+    return lr * torch.minimum(tot, cap) / torch.clamp(tot, min=_EPS)
+
+
+# -- stochastic rounding bits (the kernel's counter-based hash) ------------
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """(a * b) mod 2^32 for int64 ``a`` in [0, 2^32), without overflow."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def sr_bits(seed: int, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """The kernel's random bits ``fmix32(fmix32(fmix32(seed) ^ row) ^ col)``
+    as int64 values in [0, 2^32), broadcast over ``rows`` and ``cols``."""
+    s = _fmix32(torch.tensor(seed & _MASK32, dtype=torch.int64))
+    h = _fmix32(s ^ rows.to(torch.int64))
+    return _fmix32(h ^ cols.to(torch.int64))
+
+
+def stochastic_round_bf16(
+    x: torch.Tensor, seed: int, rows: torch.Tensor
+) -> torch.Tensor:
+    """f32 [len(rows), D] -> bf16 with the kernel's stochastic rounding:
+    add the low 16 random bits of (seed, row, col) to the f32 bit
+    pattern, then truncate."""
+    cols = torch.arange(x.shape[1], device=x.device)
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & _MASK32
+    r16 = sr_bits(seed, rows[:, None], cols[None, :]) & 0xFFFF
+    out = (bits + r16) & 0xFFFF0000
+    out = out - ((out >> 31) << 32)  # back to the signed int32 range
+    return out.to(torch.int32).view(torch.float32).to(torch.bfloat16)
+
+
+# -- the kernel and its plain version --------------------------------------
+
+
+def apply_sorted_stream_plain(
+    table: torch.Tensor, ids_s: torch.Tensor, upd_s: torch.Tensor, seed: int = 0
+) -> torch.Tensor:
+    """Plain torch version of ``apply_sorted_stream`` (same contract).
+
+    f32 tables: ``index_add_`` of ``-upd_s``. bf16 tables: per touched row
+    the f32 sum of its rows, subtracted in f32, written back with the
+    kernel's stochastic rounding bits.
+    """
+    if table.dtype == torch.float32:
+        return table.index_add_(0, ids_s.long(), upd_s, alpha=-1)
+    uniq, inv = torch.unique_consecutive(ids_s.long(), return_inverse=True)
+    sums = torch.zeros(
+        (uniq.numel(), table.shape[1]), dtype=torch.float32, device=table.device
+    ).index_add_(0, inv, upd_s.to(torch.float32))
+    new = table[uniq].to(torch.float32) - sums
+    table[uniq] = stochastic_round_bf16(new, seed, uniq)
+    return table
+
+
+def apply_sorted_stream(
+    table: torch.Tensor, ids_s: torch.Tensor, upd_s: torch.Tensor, seed: int = 0
+) -> torch.Tensor:
+    """``table[i] -= sum of upd_s rows with id i``, IN PLACE; returns table.
+
+    Args:
+        table: [N, D] float32 or bfloat16, contiguous.
+        ids_s: [R] int32 destination rows, sorted ascending.
+        upd_s: [R, D] float32 payload rows (already scaled).
+        seed: stochastic-rounding seed (bf16 tables only).
+
+    Rows no id names are neither read nor written. A CUDA table runs the
+    CUDA kernel of ``csrc/apply.cu`` on the current stream (and counts
+    the launch in ``apply_sorted_stream.launches``) or raises; a CPU
+    table runs ``apply_sorted_stream_plain``.
+    """
+    if table.device.type == "cpu":
+        return apply_sorted_stream_plain(table, ids_s, upd_s, seed)
+    if table.device.type != "cuda":
+        raise ValueError(f"apply_sorted_stream: unsupported device {table.device}")
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"table must be float32 or bfloat16, got {table.dtype}")
+    if ids_s.dtype != torch.int32 or upd_s.dtype != torch.float32:
+        raise TypeError(
+            f"ids_s must be int32 and upd_s float32, got {ids_s.dtype} and "
+            f"{upd_s.dtype}"
+        )
+    r = ids_s.shape[0]
+    if (
+        table.dim() != 2
+        or ids_s.dim() != 1
+        or tuple(upd_s.shape) != (r, table.shape[1])
+    ):
+        raise ValueError(
+            f"shapes: table {tuple(table.shape)}, ids_s {tuple(ids_s.shape)}, "
+            f"upd_s {tuple(upd_s.shape)}; want [N, D], [R], [R, D]"
+        )
+    if not (
+        table.is_contiguous() and ids_s.is_contiguous() and upd_s.is_contiguous()
+    ):
+        raise ValueError("table, ids_s and upd_s must be contiguous")
+    if ids_s.device != table.device or upd_s.device != table.device:
+        raise ValueError("table, ids_s and upd_s must be on one device")
+    if table.device.index not in (None, torch.cuda.current_device()):
+        raise ValueError(
+            f"table is on {table.device} but the current CUDA device is "
+            f"{torch.cuda.current_device()}; the kernel launches on the "
+            "current device"
+        )
+    if r == 0:
+        return table
+    lib = _kernels.load()
+    fn = (
+        lib.pecanpy_apply_sorted_bf16
+        if table.dtype == torch.bfloat16
+        else lib.pecanpy_apply_sorted_f32
+    )
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    code = fn(
+        table.data_ptr(), ids_s.data_ptr(), upd_s.data_ptr(), r,
+        table.shape[0], table.shape[1], seed & _MASK32, stream,
+    )
+    _kernels.check(lib, code, "apply_sorted_stream")
+    apply_sorted_stream.launches += 1
+    return table
+
+
+apply_sorted_stream.launches = 0
+
+
+# -- stream prep and the public entry points -------------------------------
+
+
+def sorted_stream_one(ids, upd, cnt, lr, cap: Cap):
+    """Sort one stream by id and pre-scale its payload: (ids_s, upd_s)."""
+    ids_s, order = torch.sort(ids.to(torch.int32), stable=True)
+    scale = _sorted_scales(ids_s, cnt.to(torch.float32)[order], lr, cap)
+    upd_s = upd.to(torch.float32)[order] * scale[:, None]
+    return ids_s.contiguous(), upd_s.contiguous()
+
+
+def sorted_stream_two(ids_a, upd_a, cnt_a, ids_b, upd_b, cnt_b, lr,
+                      cap_a: float, cap_b: float):
+    """Merge two streams under the key ``id * 2 + stream``, sort, and
+    pre-scale each (id, stream) group with its own cap: (ids_s, upd_s)."""
+    keys = torch.cat([ids_a.to(torch.int64) * 2, ids_b.to(torch.int64) * 2 + 1])
+    upd = torch.cat([upd_a.to(torch.float32), upd_b.to(torch.float32)])
+    cnt = torch.cat([cnt_a.to(torch.float32), cnt_b.to(torch.float32)])
+    keys_s, order = torch.sort(keys, stable=True)
+    cap_s = torch.where((keys_s & 1) == 1, cap_b, cap_a)
+    scale = _sorted_scales(keys_s, cnt[order], lr, cap_s)
+    upd_s = upd[order] * scale[:, None]
+    return (keys_s >> 1).to(torch.int32).contiguous(), upd_s.contiguous()
+
+
+def apply_mean_updates(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    upd: torch.Tensor,
+    cnt: torch.Tensor,
+    lr: float,
+    cap: float = DEFAULT_UPDATE_CAP,
+    rng_seed: int = 0,
+) -> torch.Tensor:
+    """table[i] -= lr * capped sum of the upd rows with id i, IN PLACE.
+
+    The rule is ``_row_step``'s: the gradient sum, scaled by
+    ``min(count, cap) / count``. Rows absent from ``ids`` are unchanged;
+    entries with cnt 0 and zero upd rows are no-ops. ``ids`` must be
+    < table rows. Returns ``table``.
+    """
+    if table.device.type == "cpu":
+        return _apply_scatter(table, ids, upd, cnt, lr, cap)
+    if ids.shape[0] == 0:
+        return table
+    ids_s, upd_s = sorted_stream_one(ids, upd, cnt, lr, cap)
+    return apply_sorted_stream(table, ids_s, upd_s, rng_seed)
+
+
+def apply_mean_updates_two(
+    table: torch.Tensor,
+    ids_a: torch.Tensor,
+    upd_a: torch.Tensor,
+    cnt_a: torch.Tensor,
+    ids_b: torch.Tensor,
+    upd_b: torch.Tensor,
+    cnt_b: torch.Tensor,
+    lr: float,
+    cap_a: float = DEFAULT_UPDATE_CAP,
+    cap_b: float = DEFAULT_UPDATE_CAP,
+    rng_seed: int = 0,
+) -> torch.Tensor:
+    """Apply two capped-mean update streams in ONE table pass, IN PLACE.
+
+    Semantics: ``apply_mean_updates(apply_mean_updates(table, a...),
+    b...)``, because application is linear in the pre-scaled rows. The
+    streams keep separate normalization groups (counts and caps): merging
+    them into one mean would let the more numerous stream drown the other.
+    ``ids`` must stay < 2^62. Returns ``table``.
+    """
+    if table.device.type == "cpu":
+        _apply_scatter(table, ids_a, upd_a, cnt_a, lr, cap_a)
+        return _apply_scatter(table, ids_b, upd_b, cnt_b, lr, cap_b)
+    if ids_a.shape[0] + ids_b.shape[0] == 0:
+        return table
+    ids_s, upd_s = sorted_stream_two(
+        ids_a, upd_a, cnt_a, ids_b, upd_b, cnt_b, lr, cap_a, cap_b
+    )
+    return apply_sorted_stream(table, ids_s, upd_s, rng_seed)

@@ -1,0 +1,135 @@
+"""Batched transition weights over fused rows.
+
+Counterpart of ``pecanpy_tpu/ops/transition.py``. Each function maps a
+batch of walker states to *unnormalized* transition weights over the
+padded neighbor slots of the current nodes:
+
+    cur_rows [B, W], prev_rows [B, W]  ->  [B, d] weights
+
+where the rows were gathered by the walk engine and carried from the last
+step, so a second-order step reads the node table only once. Inverse-CDF
+sampling consumes unnormalized weights directly.
+
+Membership of each candidate in prev's row is an all-pairs equality mask
+``[B, d, d]`` over the two carried rows, exactly as in the JAX package.
+Padded slots carry weight 0 and the sentinel id, so whatever bias factor
+they pick up, their probability stays 0.
+"""
+from typing import Optional
+
+import torch
+
+from pecanpy_tpu_torch.ops.layout import DeviceCSR
+
+_EPS = 1e-30
+
+
+def _active_width(graph: DeviceCSR) -> int:
+    """Slots that can hold real neighbors: the true max degree rounded up
+    to 8, at most ``dpad`` (the membership test is O(width^2))."""
+    width = -(-min(graph.max_degree, graph.dpad) // 8) * 8
+    return min(max(width, 8), graph.dpad)
+
+
+def _locate_in_prev(cur_nbr: torch.Tensor, prev_nbr: torch.Tensor,
+                    prev_wgt=None):
+    """For each candidate x in cur's row, look x up in prev's row.
+
+    Returns:
+        found: [B, d] bool, x is a neighbor of prev.
+        prev_wgt_of: [B, d] float32 w(prev, x), 0 where not found, or
+            None when ``prev_wgt`` is None (plain node2vec needs only
+            membership).
+    """
+    eq = cur_nbr[:, :, None] == prev_nbr[:, None, :]  # [B, d, d]
+    found = eq.any(dim=-1)
+    if prev_wgt is None:
+        return found, None
+    prev_wgt_of = torch.where(eq, prev_wgt[:, None, :], 0.0).sum(dim=-1)
+    return found, prev_wgt_of
+
+
+def row_thresholds(
+    graph: DeviceCSR, rows: torch.Tensor, gamma: float
+) -> torch.Tensor:
+    """[B] noise threshold of each row's node, recomputed from its weights
+    (population mean + gamma * std over the edge weights, clipped at 0)."""
+    w = graph.rows_wgt(rows)
+    deg = torch.clamp((w > 0).to(torch.float32).sum(dim=-1), min=1.0)
+    mean = w.sum(dim=-1) / deg
+    var = torch.clamp((w * w).sum(dim=-1) / deg - mean * mean, min=0.0)
+    return torch.clamp(mean + gamma * torch.sqrt(var), min=0.0)
+
+
+def node2vec_weights_rows(
+    graph: DeviceCSR,
+    cur_rows: torch.Tensor,
+    prev_rows: torch.Tensor,
+    prev: torch.Tensor,
+    p: float,
+    q: float,
+) -> torch.Tensor:
+    """Second-order node2vec biased weights from fused rows.
+
+    Neighbors of cur that are neither neighbors of prev nor prev itself
+    are "out" edges and divide by q; the return edge divides by p; common
+    neighbors keep their weight.
+    """
+    d = _active_width(graph)
+    cur_nbr = graph.rows_nbr(cur_rows)[:, :d]
+    w = graph.rows_wgt(cur_rows)[:, :d]
+    prev_nbr = graph.rows_nbr(prev_rows)[:, :d]
+    found, _ = _locate_in_prev(cur_nbr, prev_nbr)
+    is_prev = cur_nbr == prev[:, None]
+    is_out = ~found & ~is_prev
+    w = w * torch.where(is_out, 1.0 / q, 1.0)
+    w = w * torch.where(is_prev, 1.0 / p, 1.0)
+    return w
+
+
+def node2vec_plus_weights_rows(
+    graph: DeviceCSR,
+    cur_rows: torch.Tensor,
+    prev_rows: torch.Tensor,
+    prev: torch.Tensor,
+    p: float,
+    q: float,
+    gamma: Optional[float] = None,
+) -> torch.Tensor:
+    """Second-order node2vec+ biased weights (the ``extend`` mode).
+
+    * candidate x is an out edge iff it is not a neighbor of prev, or
+      w(prev, x) < threshold[x];
+    * out edges get ``alpha = 1/q + (1 - 1/q) * t`` with
+      ``t = w(prev, x) / threshold[x]`` (0 for non-neighbors of prev);
+    * out edges with w(cur, x) < threshold[cur] get ``min(1, 1/q)``;
+    * the return edge divides by p.
+    """
+    d = _active_width(graph)
+    cur_nbr = graph.rows_nbr(cur_rows)[:, :d]
+    w = graph.rows_wgt(cur_rows)[:, :d]
+    prev_nbr = graph.rows_nbr(prev_rows)[:, :d]
+    found, prev_wgt_of = _locate_in_prev(
+        cur_nbr, prev_nbr, graph.rows_wgt(prev_rows)[:, :d]
+    )
+    is_prev = cur_nbr == prev[:, None]
+
+    if gamma is None:
+        gamma = graph.gamma
+    theta_x = graph.rows_thr(cur_rows)[:, :d]  # padded slots are 1.0
+    theta_cur = row_thresholds(graph, cur_rows, gamma)[:, None]  # [B, 1]
+
+    loose = prev_wgt_of < theta_x
+    is_out = torch.where(found, loose, True) & ~is_prev
+
+    t = torch.where(
+        found & is_out, prev_wgt_of / torch.clamp(theta_x, min=_EPS), 0.0
+    )
+    inv_q = 1.0 / q
+    alpha = inv_q + (1.0 - inv_q) * t
+    noisy = w < theta_cur
+    alpha = torch.where(noisy, min(1.0, inv_q), alpha)
+
+    w = w * torch.where(is_out, alpha, 1.0)
+    w = w * torch.where(is_prev, 1.0 / p, 1.0)
+    return w

@@ -1,0 +1,163 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's time goes, on one NVIDIA GPU.
+
+    python3 profile_port.py [--out chiprun_out/profile_port.txt]
+
+Runs the configuration of ``chip_smoke.py``'s main path (the 1M-node,
+mean-degree-16 weighted graph of ``bench.py``, p=0.5, q=2, walks of 80
+steps, dim 128, window 10, bf16 tables) and measures two steady-state
+windows:
+
+- walks: ``simulate_walks_device(1, 80)`` after a warm-up;
+- SGNS: ``WINDOW_STEPS`` chunk-steps of ``make_step_body`` after
+  ``WARMUP_STEPS`` (the step ``sgns.train`` runs, without its setup and
+  final table fetch).
+
+Each window is timed twice: on the host clock with a synchronize at each
+end (ms per step, rate), and under ``torch.profiler`` (device time by
+op; device idle share = 1 - summed kernel time / host-clock window).
+Prints a summary; the full op tables go to ``--out``.
+"""
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+WARMUP_STEPS = 5
+WINDOW_STEPS = 20
+TOP_OPS = 25
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def _self_device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def profiled(fn, label, out):
+    """Run ``fn`` once on the host clock and once under the profiler;
+    returns (host seconds, device-busy seconds or None)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # an op's device time shows twice: on its aten op (host side) and on
+    # the kernels it launched (device side); busy time sums the kernels
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_us = sum(_self_device_us(e) for e in kernels)
+    table = events.table(sort_by="self_cuda_time_total", row_limit=TOP_OPS)
+    out.write(f"== {label}\n{table}\n")
+    ops = [e for e in events if e.device_type != DeviceType.CUDA]
+    for e in sorted(ops, key=_self_device_us, reverse=True)[:8]:
+        log(f"    {e.key[:40]:40s} {_self_device_us(e) / 1e3:9.3f} ms device, "
+            f"{e.count} calls")
+    for e in kernels:  # the port's own kernels have no aten op
+        if "apply_sorted_kernel" in e.key:
+            log(f"    {'csrc/apply.cu':40s} {_self_device_us(e) / 1e3:9.3f} ms device, "
+                f"{e.count} calls")
+    return host_s, (busy_us / 1e6 if busy_us > 0 else None)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "profile_port.txt"))
+    args = ap.parse_args()
+
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from chip_smoke import (DIM, MEAN_DEGREE, NODES, WALK_LENGTH, WINDOW,
+                            build_bench_graph, nvidia_smi_line)
+    from pecanpy_tpu_torch import pecanpy
+    from pecanpy_tpu_torch.models import sgns
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch finds no CUDA device: this script needs a GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"[device] {nvidia_smi_line()}")
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+
+    with tempfile.TemporaryDirectory() as tmp, open(args.out, "w") as out:
+        indptr, indices, data = build_bench_graph(NODES, MEAN_DEGREE)
+        path = os.path.join(tmp, "bench_graph.csr.npz")
+        np.savez(path, indptr=indptr, indices=indices, data=data)
+        g = pecanpy.SparseOTF(p=0.5, q=2.0, random_state=0, device="cuda")
+        g.read_npz(path, weighted=True, implicit_ids=True)
+        g.preprocess_transition_probs()
+        g.simulate_walks_device(1, 8)  # warm-up
+
+        result = {}
+
+        def walk():
+            result["walks"] = g.simulate_walks_device(1, WALK_LENGTH)
+
+        log("[walks] simulate_walks_device(1, 80), top ops by device time:")
+        host_s, busy_s = profiled(walk, "walks", out)
+        walks, eff = result["walks"]
+        steps = float((eff.to(torch.int64) - 1).sum())
+        chunks = -(-NODES // 131_072)
+        log(f"[walks] {host_s:.4f} s host clock: {steps / host_s:.4e} effective "
+            f"steps/s, {1e3 * host_s / (chunks * WALK_LENGTH):.4f} ms per step "
+            f"of {chunks} chunks x {WALK_LENGTH}")
+        if busy_s is not None:
+            log(f"[walks] device busy {busy_s:.4f} s under the profiler, "
+                f"{1e3 * busy_s / (chunks * WALK_LENGTH):.4f} ms per step: idle "
+                f"share {1 - busy_s / host_s:.4f} of the host-clock window")
+
+        # the SGNS step sgns.train runs, set up the way train sets it up
+        config = sgns.SGNSConfig(dim=DIM, window=WINDOW, seed=0)
+        counts = sgns._count_tokens(walks, eff, NODES)
+        keep_prob = sgns._keep_probs(counts, config.sample)
+        neg_table = torch.from_numpy(
+            sgns.build_negative_table(counts.cpu().numpy(), seed=0)).cuda()
+        dtype = sgns.resolve_table_dtype(config, NODES, "cuda")
+        w_in, w_out = sgns.init_tables(0, NODES, DIM, dtype, "cuda")
+        chunk = sgns.resolve_batch_walks(config, NODES, walks.shape[1])
+        step = sgns.make_step_body(NODES, config)
+        t = walks.shape[1]
+        eff_host = eff.cpu().numpy()
+
+        def run(first, count):
+            for i in range(first, first + count):
+                sl = slice(i * chunk, (i + 1) * chunk)
+                step(w_in, w_out, walks[sl], eff[sl], keep_prob, neg_table,
+                     config.alpha,
+                     sgns.draw_step(0, i, chunk, t, config, neg_table.shape[0], "cuda"))
+
+        run(0, WARMUP_STEPS)
+        a = WARMUP_STEPS
+        tokens = float(eff_host[a * chunk:(a + WINDOW_STEPS) * chunk].sum())
+        log(f"[sgns] {WINDOW_STEPS} chunk-steps of {chunk} walks ({dtype}), "
+            "top ops by device time:")
+        host_s, busy_s = profiled(lambda: run(a, WINDOW_STEPS), "sgns", out)
+        log(f"[sgns] {host_s:.4f} s host clock: {1e3 * host_s / WINDOW_STEPS:.4f} ms "
+            f"per chunk-step, {tokens / host_s:.4e} tokens/s")
+        if busy_s is not None:
+            log(f"[sgns] device busy {1e3 * busy_s / WINDOW_STEPS:.4f} ms per "
+                f"chunk-step under the profiler: idle share "
+                f"{1 - busy_s / host_s:.4f} of the host-clock window")
+        log(f"[done] op tables in {os.path.relpath(args.out, REPO)}")
+
+
+if __name__ == "__main__":
+    main()
