@@ -18,9 +18,25 @@ Phases (any failure raises, and the script exits non-zero):
    bf16 tables; the applier's launch count must rise by 2 per step;
    SGNS on a small block-model graph must recover its communities;
 5. entry point: the CLI on ``demo/karate.edg`` twice, byte-identical;
-6. prints the kernels JSON line, the ``nvidia-smi`` line, and last
+6. the hub path at full width: the 1M-node Chung-Lu power-law graph of
+   ``benchmarks/bench_powerlaw.py`` (exponent 2.2, mean degree 16),
+   a. read from a ``.csr.npz`` into ``SparseOTF(p=0.5, q=2)``: hubs and
+      the cdf channel;
+   b. the two rejection-trial kernels (``ops/trialkernel.py``) against
+      their plain torch version on 32,768 edge lanes, trials = 2 with the
+      return-edge atom, with and without ``force_ok``: bit for bit with
+      the cdf channel, under ``NO_CDF_MISMATCH_SHARE`` without it; times
+      (CUDA events, median of 20);
+   c. ``simulate_walks_device(1, 80)`` through the queued engine: 2
+      trial-kernel launches per round, every sampled step an edge;
+   d. ``generate_walks_amortized`` on 32,768 starts;
+   e. the second-order law on the card, both engines, undirected and
+      directed: empirical transition frequencies against the exact law;
+   f. ``embed(dim=128, num_walks=1, walk_length=80, max_steps=50)``;
+7. prints the kernels JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -40,6 +56,14 @@ MAX_STEPS = 50
 NEG_POOL = 32_768
 TIMING_REPS = 20
 BF16_MISMATCH_SHARE = 1e-4  # of touched elements; each at most 1 ulp off
+HUB_LANES = 32_768  # walker lanes of the hub engines (the hub default)
+TRIALS = 2
+# without the cdf channel the kernel's warp prefix sum and torch.cumsum add
+# in another order: on float weights a draw may land on the neighboring
+# slot when u * total falls within a few ulps of a category boundary
+NO_CDF_MISMATCH_SHARE = 1e-3  # of lanes
+LAW_SIGMAS = 5.0  # per-frequency tolerance of the second-order law check
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 
 
 def log(msg):
@@ -220,12 +244,24 @@ def phase_kernel_vs_plain():
                 lambda: apply_lib.apply_sorted_stream(table, ids_s, upd_s, seed))
             plain_ms = cuda_median_ms(
                 lambda: apply_lib.apply_sorted_stream_plain(table, ids_s, upd_s, seed))
+            # the library yardstick: one index_add_ of the payload in the
+            # table's type (round to nearest, not stochastic, in bf16)
+            ids_l, upd_l = ids_s.long(), upd_s.to(dtype)
+            library_ms = cuda_median_ms(lambda: table.index_add_(0, ids_l, upd_l, alpha=-1))
+            n_touched = int(touched.sum())
+            # bound: the ids and the f32 payload read once, each touched
+            # table row read and written once
+            nbytes = r * 4 + r * d * 4 + 2 * n_touched * d * table.element_size()
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
             name = str(dtype).replace("torch.", "")
             log(f"[3 kernel] {name} R={r}: max_abs_err {err:.3e} ({check}), "
-                f"untouched rows bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            results[(name, r)] = (ms, plain_ms, err)
+                f"untouched rows bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"index_add_ {library_ms:.4f} ms; {n_touched} touched rows, "
+                f"{nbytes / 1e6:.2f} MB moved at least: bound {bound_ms:.4f} ms")
+            results[(name, r)] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                                      library_ms=library_ms, bound_ms=bound_ms)
             max_err = max(max_err, err)
-            del t_k, t_p, table
+            del t_k, t_p, table, ids_l, upd_l
     del base
     torch.cuda.empty_cache()
     return results, max_err
@@ -356,6 +392,323 @@ def phase_cli(tmp):
     log("[5 cli] karate: header '34 16', two runs byte-identical")
 
 
+def build_powerlaw_graph(n, avg_deg=16, exponent=2.2, seed=0, directed=False):
+    """The Chung-Lu heavy-tail graph of
+    ``benchmarks/bench_powerlaw.py:build_powerlaw_graph``, as a sorted CSR."""
+    rng = np.random.default_rng(seed)
+    w = (1.0 - rng.random(n)) ** (-1.0 / (exponent - 1.0))
+    prob = w / w.sum()
+    m = n * avg_deg // 2
+    cdf = np.cumsum(prob)
+    src = np.searchsorted(cdf, rng.random(m)).astype(np.int64)
+    dst = np.searchsorted(cdf, rng.random(m)).astype(np.int64)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    if directed:
+        u, v = src, dst
+    else:
+        u = np.concatenate([src, dst])
+        v = np.concatenate([dst, src])
+    code = np.unique(u * n + v)
+    u, v = code // n, code % n
+    if directed:
+        wgt = (((u * 2654435761 + v) % 1000) / 1000.0 * 1.5 + 0.5).astype(np.float32)
+    else:
+        lo, hi = np.minimum(u, v), np.maximum(u, v)
+        wgt = (((lo * 2654435761 + hi) % 1000) / 1000.0 * 1.5 + 0.5).astype(np.float32)
+    deg = np.bincount(u, minlength=n)
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    return indptr, v.astype(np.int64), wgt
+
+
+def node2vec_probs(adj, cur, prev, p, q):
+    """The exact node2vec law over cur's neighbors (``tests/oracle.py``)."""
+    nbr_mask = adj[cur] != 0
+    w = adj[cur].astype(np.float64).copy()
+    out = nbr_mask & (adj[prev] == 0)
+    out[prev] = False
+    w[out] /= q
+    w[prev] /= p
+    w = w[nbr_mask]
+    return w / w.sum()
+
+
+def trial_bytes(dg, cur_rows, prev_rows, trials):
+    """Least bytes each trial kernel moves for these lanes: the channel a
+    capped row is read for (cdf or wgt in trial_propose, nbr in
+    trial_accept, dpad floats each) or a hub row's marker slots plus per
+    trial the alias fields used (12 B) or the 8 bucket keys (32 B); the
+    per-lane draws, atom inputs and outputs."""
+    b, row = cur_rows.shape[0], dg.dpad * 4
+    hub_c = int(dg.rows_is_hub(cur_rows).sum())
+    hub_p = int(dg.rows_is_hub(prev_rows).sum())
+    propose = (
+        (b - hub_c) * (row + trials * 8) + hub_c * (8 + trials * 12)
+        + b * (trials * 16 + 12) + b * trials * 8
+    )
+    accept = (
+        (b - hub_p) * row + hub_p * (16 + trials * 32)
+        + b * (trials * 12 + 5) + b * 9
+    )
+    return propose, accept
+
+
+def phase_hub_path(tmp):
+    import torch
+
+    from pecanpy_tpu_torch import pecanpy
+    from pecanpy_tpu_torch.models import engine, sgns
+    from pecanpy_tpu_torch.ops import apply as apply_lib
+    from pecanpy_tpu_torch.ops import rejection, trialkernel
+    from pecanpy_tpu_torch.ops.layout import device_csr_from_dense
+
+    # -- a. the graph and its hub layout ---------------------------------
+    t0 = time.perf_counter()
+    indptr, indices, data = build_powerlaw_graph(NODES)
+    path = os.path.join(tmp, "powerlaw_graph.csr.npz")
+    np.savez(path, indptr=indptr, indices=indices, data=data)
+    deg = np.diff(indptr)
+    log(f"[6a hub] Chung-Lu graph: {NODES} nodes, {indices.size} directed edges, "
+        f"max degree {int(deg.max())}, {int((deg == 0).sum())} isolated nodes; built "
+        f"+ saved in {time.perf_counter() - t0:.1f} s")
+    g = pecanpy.SparseOTF(p=0.5, q=2.0, random_state=0, device="cuda")
+    g.read_npz(path, weighted=True, implicit_ids=True)
+    t0 = time.perf_counter()
+    g.preprocess_transition_probs()
+    torch.cuda.synchronize()
+    dg = g.get_device_graph()
+    if not dg.has_hubs or "cdf" not in dg.channels:
+        raise AssertionError(f"hub layout expected: has_hubs {dg.has_hubs}, "
+                             f"channels {dg.channels}")
+    n_hubs = int((deg > g.degree_cap).sum())
+    log(f"[6a hub] layout in {time.perf_counter() - t0:.2f} s: {n_hubs} hubs above "
+        f"degree_cap {g.degree_cap} (hub_frac {dg.hub_frac}); fused "
+        f"{tuple(dg.fused.shape)} channels {dg.channels} "
+        f"{dg.fused.numel() * 4 / 1e6:.0f} MB, edge_pack {dg.edge_pack.numel() * 4 / 1e6:.0f} MB, "
+        f"hbuckets {dg.hbuckets.numel() * 4 / 1e6:.0f} MB")
+
+    # -- b. trial kernels against their plain version ---------------------
+    gen = np.random.default_rng(1)
+    e = gen.integers(0, indices.size, HUB_LANES)
+    cur_np = (np.searchsorted(indptr, e, side="right") - 1).astype(np.int32)
+    prev_np = indices[e].astype(np.int32)  # an edge prev -> cur (undirected)
+    cur = torch.from_numpy(cur_np).cuda()
+    prev = torch.from_numpy(prev_np).cuda()
+    cur_rows, prev_rows = dg.gather_rows(cur), dg.gather_rows(prev)
+    hub_c = int(dg.rows_is_hub(cur_rows).sum())
+    hub_p = int(dg.rows_is_hub(prev_rows).sum())
+    if min(hub_c, hub_p) < HUB_LANES // 4:
+        raise AssertionError(f"hub lanes: {hub_c} cur, {hub_p} prev of {HUB_LANES}")
+    p, q = 0.5, 2.0
+    alpha_np = max(1.0, 1.0 / q)
+    excess = 1.0 / p - alpha_np
+    _, wp = rejection.membership(dg, prev, cur_rows)
+    theta = engine._theta_from(dg, wp, cur_rows, excess, alpha_np)
+    draws = engine.TrialDrawStream(0, 0, TRIALS, "cuda")(0, dg.rows_degree(cur_rows))
+    force_ok = torch.rand(HUB_LANES, device="cuda") < 0.25
+
+    def block(dg_, rows_c, rows_p, use_cdf, force, kernel):
+        """The trial block through the kernels, or its plain version."""
+        args = (dg_, draws, prev, rows_c, rows_p, p, q)
+        if kernel:
+            return trialkernel.trial_block_fused(
+                *args, alpha_np, theta, wp, use_cdf=use_cdf, force_ok=force)
+        return rejection._trial_block(
+            *args, False, alpha_np, theta, wp, use_cdf=use_cdf, force_ok=force)
+
+    def n_differ(got, want):
+        """Lanes where any of (chosen, got, chosen_w) differs."""
+        return int(torch.stack([a != b for a, b in zip(got, want)]).any(0).sum())
+
+    for force in (None, force_ok):
+        got = block(dg, cur_rows, prev_rows, True, force, True)
+        want = block(dg, cur_rows, prev_rows, True, force, False)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"cdf channel, force_ok {force is not None}: "
+                                 f"{n_differ(got, want)} lanes differ from plain")
+        log(f"[6b trial] cdf channel, force_ok {force is not None}: chosen, got, "
+            f"chosen_w bit-equal to plain on {HUB_LANES} lanes ({hub_c} hub cur, "
+            f"{hub_p} hub prev); accepted {int(got[1].sum())}")
+    # without the cdf channel: the first two channels of the same rows
+    dg_nc = dataclasses.replace(dg, fused=dg.fused[:, : 2 * dg.dpad], channels=("nbr", "wgt"))
+    rows_nc = [r[:, : 2 * dg.dpad].contiguous() for r in (cur_rows, prev_rows)]
+    got = block(dg_nc, *rows_nc, False, None, True)
+    want = block(dg_nc, *rows_nc, False, None, False)
+    diff = n_differ(got, want)
+    if diff > NO_CDF_MISMATCH_SHARE * HUB_LANES:
+        raise AssertionError(f"no cdf channel: {diff} of {HUB_LANES} lanes differ")
+    log(f"[6b trial] no cdf channel: {diff} of {HUB_LANES} lanes differ from plain "
+        f"(allowed {NO_CDF_MISMATCH_SHARE:g} of them: prefix-sum order)")
+
+    x, wx = trialkernel.trial_propose(dg, draws, prev, cur_rows, theta, wp, True)
+    x_p, wx_p = trialkernel.trial_propose_plain(dg, draws, prev, cur_rows, theta, wp, True)
+    acc = trialkernel.trial_accept(dg, draws, x, wx, prev, prev_rows, p, q, alpha_np, True)
+    acc_p = trialkernel.trial_accept_plain(dg, draws, x, wx, prev, prev_rows, p, q, alpha_np, True)
+    torch.cuda.synchronize()
+    err_propose = max(float((x - x_p).abs().max()), float((wx - wx_p).abs().max()))
+    err_accept = max(float((a.float() - b.float()).abs().max()) for a, b in zip(acc, acc_p))
+    if err_propose or err_accept:
+        raise AssertionError(f"kernel halves differ: {err_propose}, {err_accept}")
+    times = {
+        "trial_propose": (
+            cuda_median_ms(lambda: trialkernel.trial_propose(
+                dg, draws, prev, cur_rows, theta, wp, True)),
+            cuda_median_ms(lambda: trialkernel.trial_propose_plain(
+                dg, draws, prev, cur_rows, theta, wp, True))),
+        "trial_accept": (
+            cuda_median_ms(lambda: trialkernel.trial_accept(
+                dg, draws, x, wx, prev, prev_rows, p, q, alpha_np, True)),
+            cuda_median_ms(lambda: trialkernel.trial_accept_plain(
+                dg, draws, x, wx, prev, prev_rows, p, q, alpha_np, True))),
+    }
+    block_ms = cuda_median_ms(lambda: block(dg, cur_rows, prev_rows, True, None, True))
+    block_plain_ms = cuda_median_ms(lambda: block(dg, cur_rows, prev_rows, True, None, False))
+    nbytes = dict(zip(("trial_propose", "trial_accept"),
+                      trial_bytes(dg, cur_rows, prev_rows, TRIALS)))
+    results = {}
+    for name, (ms, plain_ms) in times.items():
+        bound_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        results[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             max_abs_err=err_propose if name == "trial_propose" else err_accept)
+        log(f"[6b trial] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+            f"{nbytes[name] / 1e6:.3f} MB at least: bound {bound_ms:.5f} ms")
+    log(f"[6b trial] whole trial block ({TRIALS} trials, {HUB_LANES} lanes): kernels "
+        f"{block_ms:.4f} ms, plain {block_plain_ms:.4f} ms")
+    del dg_nc, rows_nc, cur_rows, prev_rows
+
+    # -- c. the queued engine over every start ----------------------------
+    rounds = []
+    queued = engine.generate_walks_queued
+
+    def counted(*args, **kwargs):
+        walks, eff, t = queued(*args, return_rounds=True, **kwargs)
+        rounds.append(t)
+        return walks, eff
+
+    engine.generate_walks_queued = counted
+    try:
+        g.simulate_walks_device(1, 8)  # warm-up at a short length
+        rounds.clear()
+        torch.cuda.synchronize()
+        trialkernel.trial_propose.launches = trialkernel.trial_accept.launches = 0
+        t0 = time.perf_counter()
+        walks, eff = g.simulate_walks_device(1, WALK_LENGTH)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        engine.generate_walks_queued = queued
+    launches = trialkernel.trial_propose.launches + trialkernel.trial_accept.launches
+    walks_np, eff_np = walks.cpu().numpy(), eff.cpu().numpy()
+    steps = int((eff_np - 1).sum())
+    per = g._resolved_walker_batch() * g._walk_queue_factor()
+    log(f"[6c queued] walks {tuple(walks.shape)} in {dt:.3f} s: {steps / dt:.4e} "
+        f"effective walk steps/s; {len(rounds)} dispatches of {per} walks on "
+        f"{g._resolved_walker_batch()} lanes, rounds {rounds} ({sum(rounds)} in all); "
+        f"trial-kernel launches {launches}")
+    if launches != 2 * sum(rounds) or not rounds:
+        raise AssertionError(f"{launches} trial-kernel launches in {sum(rounds)} rounds")
+    if (eff_np == 1).sum() < (deg == 0).sum():
+        raise AssertionError("isolated starts must stop at once")
+    n_checked = check_walks_follow_edges(walks_np, eff_np, indptr, indices, NODES)
+    log(f"[6c queued] sampled walks: all {n_checked} steps are edges; "
+        f"{int((eff_np == 1).sum())} walks stopped at their start")
+    del walks, eff
+
+    # -- d. the per-batch amortized engine --------------------------------
+    start = torch.from_numpy(gen.integers(0, NODES, HUB_LANES).astype(np.int32)).cuda()
+    before = trialkernel.trial_propose.launches
+    t0 = time.perf_counter()
+    walks, eff, n_rounds = engine.generate_walks_amortized(
+        dg, start, engine.TrialDrawStream(0, 1, TRIALS, "cuda"), WALK_LENGTH, p, q,
+        False, return_rounds=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    a_launches = trialkernel.trial_propose.launches - before
+    walks_np, eff_np = walks.cpu().numpy(), eff.cpu().numpy()
+    n_checked = check_walks_follow_edges(walks_np, eff_np, indptr, indices, NODES, 2000)
+    log(f"[6d amortized] {HUB_LANES} walks in {n_rounds} rounds, {dt:.3f} s "
+        f"({float((eff_np - 1).sum()) / dt:.4e} steps/s); trial_propose launches "
+        f"{a_launches}; all {n_checked} sampled steps are edges")
+    if a_launches != n_rounds or n_rounds == 0:
+        raise AssertionError(f"{a_launches} launches in {n_rounds} rounds")
+    del walks, eff
+
+    # -- e. the second-order law on the card ------------------------------
+    law_rng = np.random.default_rng(3)
+    for directed in (False, True):
+        n = 40
+        adj = (law_rng.random((n, n)) < 0.25) * law_rng.uniform(0.2, 3.0, (n, n))
+        np.fill_diagonal(adj, 0.0)
+        if not directed:
+            adj = np.triu(adj) + np.triu(adj, 1).T
+        for i in np.nonzero(adj.sum(1) == 0)[0]:
+            adj[i, (i + 1) % n] = 1.5
+        small = device_csr_from_dense(adj, degree_cap=8, with_cdf=True, device="cuda")
+        if not small.has_hubs or small.symmetric == directed:
+            raise AssertionError("law graph: hubs and symmetry as built")
+        starts = torch.arange(n, dtype=torch.int32, device="cuda").repeat(2000)
+        for name in ("queued", "amortized"):
+            draws_l = engine.TrialDrawStream(7, int(directed), TRIALS, "cuda")
+            if name == "queued":
+                w_l, e_l = engine.generate_walks_queued(
+                    small, starts, draws_l, 6, p, q, False, lanes=4096)
+            else:
+                w_l, e_l = engine.generate_walks_amortized(
+                    small, starts, draws_l, 6, p, q, False)
+            w_l, e_l = w_l.cpu().numpy(), e_l.cpu().numpy()
+            if (e_l != 7).any():
+                raise AssertionError("every law-graph node has out-edges")
+            trip = np.concatenate([w_l[:, j : j + 3] for j in range(w_l.shape[1] - 2)])
+            key = (trip[:, 0] * n + trip[:, 1]) * n + trip[:, 2]
+            counts = np.bincount(key, minlength=n ** 3).reshape(n, n, n)
+            checked, worst = 0, 0.0
+            for pv in range(n):
+                for cu in np.nonzero(adj[pv])[0]:
+                    tot = counts[pv, cu].sum()
+                    if tot < 400:
+                        continue
+                    freq = counts[pv, cu][np.nonzero(adj[cu])[0]] / tot
+                    dev = np.abs(freq - node2vec_probs(adj, cu, pv, p, q)).max()
+                    worst = max(worst, dev / np.sqrt(0.25 / tot))
+                    checked += 1
+            if checked < 50 or worst > LAW_SIGMAS:
+                raise AssertionError(f"law, {name}, directed {directed}: {checked} "
+                                     f"(prev, cur) pairs, worst {worst:.2f} sigma")
+            log(f"[6e law] {name}, {'directed' if directed else 'undirected'}: "
+                f"{checked} (prev, cur) pairs, worst frequency {worst:.2f} binomial "
+                f"sigma (limit {LAW_SIGMAS})")
+
+    # -- f. embed on the hub graph: the hub path's main path --------------
+    config = sgns.SGNSConfig(dim=DIM, window=WINDOW, seed=0)
+    apply_lib.apply_sorted_stream.launches = 0
+    trialkernel.trial_propose.launches = trialkernel.trial_accept.launches = 0
+    emb = g.embed(dim=DIM, num_walks=1, walk_length=WALK_LENGTH,
+                  window_size=WINDOW, max_steps=MAX_STEPS)
+    torch.cuda.synchronize()
+    launches = {
+        "apply_sorted_stream": apply_lib.apply_sorted_stream.launches,
+        "trial_propose": trialkernel.trial_propose.launches,
+        "trial_accept": trialkernel.trial_accept.launches,
+    }
+    log(f"[6f embed] launches {launches} in {MAX_STEPS} chunk-steps")
+    if launches["apply_sorted_stream"] != 2 * MAX_STEPS or not launches["trial_propose"]:
+        raise AssertionError(f"launches {launches}")
+    if launches["trial_propose"] != launches["trial_accept"]:
+        raise AssertionError("trial kernels launched unequal times")
+    if emb.shape != (NODES, DIM) or not np.isfinite(emb).all():
+        raise AssertionError(f"embeddings {emb.shape}, finite {np.isfinite(emb).all()}")
+    dtype = sgns.resolve_table_dtype(config, NODES, "cuda")
+    init = sgns.init_tables(0, NODES, DIM, dtype, "cuda")[0].float().cpu().numpy()
+    moved = int((emb != init).any(axis=1).sum())
+    if moved == 0:
+        raise AssertionError("embeddings equal their initialization")
+    log(f"[6f embed] embeddings {emb.shape} {emb.dtype}, finite; {moved} rows moved")
+    del g, dg
+    torch.cuda.empty_cache()
+    return results, launches
+
+
 def main():
     import torch
 
@@ -372,19 +725,31 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_main_path(tmp)
         phase_cli(tmp)
+        hub_results, hub_launches = phase_hub_path(tmp)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    ms, plain_ms, _ = results[("bfloat16", 1235 * (WALK_LENGTH + 1) + NEG_POOL)]
+    apply_row = results[("bfloat16", 1235 * (WALK_LENGTH + 1) + NEG_POOL)]
+    rows = [
+        ("apply_sorted_stream", "apply.cu", "apply.py:169", launches,
+         dict(apply_row, max_abs_err=max_err)),
+        ("trial_propose", "trial.cu", "trialkernel.py:84",
+         hub_launches["trial_propose"], dict(hub_results["trial_propose"], library_ms=None)),
+        ("trial_accept", "trial.cu", "trialkernel.py:166",
+         hub_launches["trial_accept"], dict(hub_results["trial_accept"], library_ms=None)),
+    ]
     kernels = {"kernels": [{
-        "name": "apply_sorted_stream",
+        "name": name,
         "route": "cuda",
-        "source": "pecanpy_tpu_torch/csrc/apply.cu",
-        "replaces": "pecanpy_tpu/ops/apply.py:169",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}
+        "source": f"pecanpy_tpu_torch/csrc/{src}",
+        "replaces": f"pecanpy_tpu/ops/{tpu}",
+        "launches": n,
+        "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": r["library_ms"],
+    } for name, src, tpu, n, r in rows]}
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -111,13 +111,15 @@ def parse_args(argv=None):
         type=int,
         default=None,
         help="Max degree of the fused rows (default 128; 0 disables "
-        "capping). Graphs above it need the hub path, not ported yet.",
+        "capping). Nodes above it are hubs, walked by exact rejection "
+        "sampling from flat alias and hash tables.",
     )
     parser.add_argument(
         "--walker-batch",
         type=int,
         default=None,
-        help="Walkers advanced together (default 131072).",
+        help="Walkers advanced together (default 131072; 32768 walker "
+        "lanes on graphs with hubs).",
     )
     parser.add_argument(
         "--table-dtype",

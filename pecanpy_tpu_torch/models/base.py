@@ -26,6 +26,10 @@ from pecanpy_tpu_torch.typing import Embeddings
 from pecanpy_tpu_torch.wrappers import Timer
 
 DEFAULT_WALKER_BATCH = 131072
+# hub graphs walk with fewer lanes: the hub walkers' straggler tail (the
+# max over lanes of summed geometric retries) grows with the batch
+# (``pecanpy_tpu/models/base.py``)
+DEFAULT_HUB_WALKER_BATCH = 32768
 
 ROADMAP_SLICES = "see ROADMAP.md, 'Modules to port'"
 
@@ -55,9 +59,11 @@ class Base(BaseGraph):
         gamma: node2vec+ noise-threshold std multiplier.
         random_state: seed for start-node shuffling and the walk and
             training generators.
-        walker_batch: walkers advanced together (default 131072).
-        degree_cap: graphs whose max degree exceeds this need the hub
-            path, which is not ported yet (building them raises).
+        walker_batch: walkers advanced together; None resolves per graph:
+            131072 without hubs, 32768 walker lanes with hubs.
+        degree_cap: nodes above this degree are hubs, served by the flat
+            hub tables and the rejection walkers (``ops/hubs.py``); None
+            pads fused rows to the true max degree.
         device: "cuda" (default) or "cpu"; "cuda" without a CUDA device
             raises.
     """
@@ -121,7 +127,38 @@ class Base(BaseGraph):
     def _resolved_walker_batch(self) -> int:
         if self.walker_batch is not None:
             return self.walker_batch
+        if self.get_device_graph().has_hubs:
+            return DEFAULT_HUB_WALKER_BATCH
         return DEFAULT_WALKER_BATCH
+
+    def _walk_queue_factor(self) -> int:
+        """Walks per chunk, in units of walker lanes (the hub modes
+        override it: their queued engine amortizes stragglers per chunk)."""
+        return 1
+
+    def _make_walk_runner(self, walk_length: int):
+        """The (dg, start, chunk index) -> (walks, eff) walk callable.
+
+        Default: the scan engine over this mode's step functions, fed by
+        ``engine.walk_uniforms(seed, chunk index)``. The OTF modes route
+        hub graphs to the hub engines instead.
+        """
+        first_fn, step_fn = self.make_step_fns()
+
+        def run(dg, start, chunk_idx):
+            u = engine.walk_uniforms(
+                self._seed(), chunk_idx, walk_length, start.shape[0], self.device
+            )
+            return engine.generate_walks(
+                dg,
+                lambda uu, cur, rows: first_fn(dg, uu, cur, rows),
+                lambda uu, cur, prev, cr, pr: step_fn(dg, uu, cur, prev, cr, pr),
+                start,
+                u,
+                walk_length,
+            )
+
+        return run
 
     def _seed(self) -> int:
         """Concrete seed for this instance, resolved exactly once.
@@ -151,32 +188,24 @@ class Base(BaseGraph):
     def _walk_chunks(self, num_walks: int, walk_length: int):
         """Yield (walks, eff_len) device chunks, deterministically.
 
-        Chunk i draws its uniforms from ``engine.walk_uniforms(seed, i)``,
-        so every call reproduces the identical chunk stream: the contract
-        the streaming trainer's passes rely on.
+        Chunk i draws from a generator seeded by (seed, i), so every call
+        reproduces the identical chunk stream: the contract the streaming
+        trainer's passes rely on.
         """
         self._preprocess_transition_probs()
         dg = self.get_device_graph()
-        first_fn, step_fn = self.make_step_fns()
+        run = self._make_walk_runner(walk_length)
 
         starts = self._start_nodes(num_walks)
         total = starts.size
-        chunk = min(self._resolved_walker_batch(), total)
+        chunk = min(
+            self._resolved_walker_batch() * self._walk_queue_factor(), total
+        )
         n_chunks = -(-total // chunk)
         t0 = time.perf_counter()
         for i, lo in enumerate(range(0, total, chunk)):
             part = starts[lo : lo + chunk]
-            u = engine.walk_uniforms(
-                self._seed(), i, walk_length, part.size, self.device
-            )
-            walks, eff = engine.generate_walks(
-                dg,
-                lambda uu, cur, rows: first_fn(dg, uu, cur, rows),
-                lambda uu, cur, prev, cr, pr: step_fn(dg, uu, cur, prev, cr, pr),
-                torch.from_numpy(part).to(self.device),
-                u,
-                walk_length,
-            )
+            walks, eff = run(dg, torch.from_numpy(part).to(self.device), i)
             if self.verbose and n_chunks > 1:
                 done = min(lo + chunk, total)
                 rate = done * walk_length / max(

@@ -1,9 +1,17 @@
-"""The batched walk engine: B walkers advance in lockstep, one step at a time.
+"""The batched walk engines.
 
-Counterpart of ``pecanpy_tpu/models/engine.py:generate_walks``. The JAX
-package compiles the step loop as a ``lax.scan``; here it is a Python
-loop over the ``L - 1`` second-order steps, each a handful of tensor ops
-on the whole batch.
+Counterpart of ``pecanpy_tpu/models/engine.py``:
+
+* ``generate_walks``: B walkers advance in lockstep, one step at a time
+  (graphs without hubs). The JAX package compiles the step loop as a
+  ``lax.scan``; here it is a Python loop over the ``L - 1`` second-order
+  steps, each a handful of tensor ops on the whole batch.
+* ``generate_walks_amortized`` and ``generate_walks_queued``: the hub
+  walkers, which advance every lane by exact rejection (one trial block
+  per round, ``ops/trialkernel.py``) and let a lane that rejects retry in
+  the next round while the others move on. ``lax.while_loop`` becomes a
+  Python loop that reads the pending count on the host once per block
+  of rounds, never once per round.
 
 The fused rows of the current AND previous node are carried from step to
 step, so each step performs exactly ONE table gather: the row of the node
@@ -24,15 +32,28 @@ where ``u`` is the step's [B, 1] uniforms. Walk semantics (reference
 * dead walkers keep emitting their resting node, which consumers never
   read because they cut each walk at its effective length.
 """
-from typing import Callable, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from pecanpy_tpu_torch.ops import rejection, trialkernel
 from pecanpy_tpu_torch.ops.layout import DeviceCSR
+from pecanpy_tpu_torch.ops.rejection import TrialDraws
 
 FirstFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 StepFn = Callable[..., torch.Tensor]
+# draws(round index, [B] int32 degree of each lane's current node) -> the
+# round's per-trial draws; the amortized engine's first-order draw asks
+# for round FIRST and reads one TrialDraws
+DrawFn = Callable[[int, torch.Tensor], List[TrialDraws]]
+FIRST = -1
+
+
+def _chunk_generator(seed: int, chunk_idx: int, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(np.random.SeedSequence([seed, chunk_idx]).generate_state(1)[0]))
+    return gen
 
 
 def walk_uniforms(
@@ -44,9 +65,28 @@ def walk_uniforms(
     ``fold_in(base_key, i)``, so the streaming trainer's passes see the
     identical chunk stream. Row s feeds step s + 1.
     """
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(np.random.SeedSequence([seed, chunk_idx]).generate_state(1)[0]))
+    gen = _chunk_generator(seed, chunk_idx, device)
     return torch.rand((walk_length, batch), generator=gen, device=device)
+
+
+class TrialDrawStream:
+    """The hub engines' draws for one walk chunk: a ``DrawFn`` backed by
+    one ``torch.Generator`` seeded from (seed, chunk index), as
+    ``walk_uniforms`` is, so the chunk stream is reproducible. Each call
+    draws the round's uniforms in one [T, 5, B] block; ``kk`` comes from
+    its first row by ``rejection.slot_offsets``."""
+
+    def __init__(self, seed: int, chunk_idx: int, trials: int, device):
+        self.gen = _chunk_generator(seed, chunk_idx, device)
+        self.trials = trials
+
+    def __call__(self, round_idx: int, deg: torch.Tensor) -> List[TrialDraws]:
+        n = 1 if round_idx == FIRST else self.trials
+        u = torch.rand((n, 5, deg.shape[0]), generator=self.gen, device=deg.device)
+        return [
+            TrialDraws(rejection.slot_offsets(u[t, 0], deg), *u[t, 1:])
+            for t in range(n)
+        ]
 
 
 def generate_walks(
@@ -94,3 +134,327 @@ def generate_walks(
         prev, cur, prev_rows, cur_rows = cur, nxt, cur_rows, nxt_rows
         cols.append(nxt)
     return torch.stack(cols, dim=1), eff
+
+
+def _theta_from(graph: DeviceCSR, wp, cur_rows, excess, alpha_np):
+    """Return-edge atom mass from w(cur -> prev) and cur's weight sum."""
+    wsum = graph.rows_wgt(cur_rows).sum(dim=-1)
+    if graph.has_hubs:
+        wsum = torch.where(
+            graph.rows_is_hub(cur_rows), graph.rows_hub_wsum(cur_rows), wsum
+        )
+    return wp * excess / (
+        wp * excess + alpha_np * torch.clamp(wsum, min=rejection._EPS)
+    )
+
+
+def _trial_fn(graph: DeviceCSR, p, q, extend, alpha_np, use_cdf):
+    """The round's trial block: the CUDA kernels for node2vec (on a CPU
+    graph their plain version), the plain block for node2vec+."""
+
+    def run(draws, prev, cur_rows, prev_rows, theta, wp, force_ok=None):
+        if extend:
+            return rejection._trial_block(
+                graph, draws, prev, cur_rows, prev_rows, p, q, True, alpha_np,
+                theta, wp, mode="auto", use_cdf=use_cdf, force_ok=force_ok,
+            )
+        return trialkernel.trial_block_fused(
+            graph, draws, prev, cur_rows, prev_rows, p, q, alpha_np, theta,
+            wp, use_cdf=use_cdf, force_ok=force_ok,
+        )
+
+    return run
+
+
+def generate_walks_queued(
+    graph: DeviceCSR,
+    starts: torch.Tensor,
+    draws: DrawFn,
+    walk_length: int,
+    p: float,
+    q: float,
+    extend: bool,
+    lanes: int = 32768,
+    round_cap_factor: int = 40,
+    return_rounds: bool = False,
+    undirected: Optional[bool] = None,
+    unroll: int = 4,
+    flush_every: int = 4,
+):
+    """Persistent-lane hub walker over a walk QUEUE (the hub default).
+
+    B persistent lanes process a queue of W walks: every round each lane
+    runs one trial block (propose, bias, accept); a lane that accepts
+    advances, one that rejects stays put and retries next round. A lane
+    that finishes its walk (L columns written, or stopped on a node with
+    no out-edges) parks until the block boundary, where finished rows are
+    flushed to the output and the lane claims the next unstarted walk.
+    The straggler tail of summed geometric retries is then paid once per
+    queue, not once per batch.
+
+    Per-walk semantics (start column, early termination, effective
+    lengths, resting-node emission) match ``generate_walks``; each step's
+    law is the exact second-order one. First-order steps (column 1 of
+    each walk) are trials with ``force_ok`` and zero atom mass.
+
+    A block is ``unroll * flush_every`` rounds; the pending count is read
+    on the host once per block. Output row w always serves ``starts[w]``.
+
+    Args:
+        starts: [W] int32 start nodes (the walk queue; W >= 1).
+        draws: the per-round draws (``TrialDrawStream`` or injected).
+        lanes: persistent walker lanes B (walks in flight at once).
+        round_cap_factor: safety bound on rounds; lanes cut off emit
+            their resting node (reachable only at pathological p/q).
+        undirected: None takes ``graph.symmetric``; True reuses the
+            accepted proposal's weight w(cur, x) as the next return-edge
+            weight w(x, cur) instead of a membership probe.
+
+    Returns:
+        walks: [W, L + 1] int32; eff_len: [W] int32;
+        (+ rounds taken when ``return_rounds``).
+    """
+    if undirected is None:
+        undirected = graph.symmetric
+    dev = graph.fused.device
+    starts = starts.to(device=dev, dtype=torch.int32)
+    w_total = starts.shape[0]
+    b = min(lanes, w_total)
+    sentinel = graph.num_nodes
+    alpha_np = max(1.0, 1.0 / q)
+    excess = 1.0 / p - alpha_np
+    use_atom = excess > 0.0
+    trial_fn = _trial_fn(graph, p, q, extend, alpha_np, "cdf" in graph.channels)
+    cols_row = torch.arange(walk_length + 1, dtype=torch.int32, device=dev)
+
+    # lane i starts on walk i; the queue cursor sits past them. Row W of
+    # big / eff_big and column L + 1 of buf_l take writes meant for no one.
+    wid = torch.arange(b, dtype=torch.int32, device=dev)
+    cur = starts[:b].clone()
+    prev = cur.clone()
+    cur_rows = graph.gather_rows(cur)
+    prev_rows = cur_rows
+    big = torch.zeros((w_total + 1, walk_length + 1), dtype=torch.int32, device=dev)
+    eff_big = torch.full((w_total + 1,), walk_length + 1, dtype=torch.int32, device=dev)
+    buf_l = torch.zeros((b, walk_length + 2), dtype=torch.int32, device=dev)
+    buf_l[:, 0] = cur
+    eff_l = torch.full((b,), walk_length + 1, dtype=torch.int32, device=dev)
+    theta = torch.zeros(b, dtype=torch.float32, device=dev)
+    wp = torch.zeros(b, dtype=torch.float32, device=dev)
+    step = torch.ones(b, dtype=torch.int32, device=dev)  # next column to write
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    next_w = torch.tensor(b, dtype=torch.int32, device=dev)
+
+    n_batches = -(-w_total // b)
+    round_cap = n_batches * walk_length * round_cap_factor + 64
+    block = max(int(unroll), 1) * max(int(flush_every), 1)
+
+    t = 0
+    pending = b
+    while pending > 0 and t < round_cap:
+        for _ in range(block):
+            # dead-arrival / dead-start check on the current node
+            has = graph.rows_nbr(cur_rows)[:, 0] != sentinel
+            died = active & ~has & (step <= walk_length)
+            eff_l = torch.where(died, step, eff_l)
+
+            # one trial block over every lane; first-order lanes force
+            # acceptance of trial 1's proposal (their atom mass is 0)
+            needs = active & has & (step <= walk_length)
+            x, ok, wx = trial_fn(
+                draws(t, graph.rows_degree(cur_rows)), prev, cur_rows,
+                prev_rows, theta if use_atom else None,
+                wp if use_atom else None, force_ok=step == 1,
+            )
+            t += 1
+            adv = needs & ok
+            prev = torch.where(adv, cur, prev)
+            cur = torch.where(adv, x, cur)
+            prev_rows = torch.where(adv[:, None], cur_rows, prev_rows)
+            col = torch.where(adv, step, walk_length + 1)
+            buf_l.scatter_(1, col[:, None].long(), x[:, None])
+            step = step + adv.to(torch.int32)
+
+            # finished lanes park until the block-boundary flush + claim
+            finished = died | (step > walk_length)
+            done = done | (active & finished)
+            active = active & ~finished
+
+            cur_rows = graph.gather_rows(cur)  # the one row gather per round
+            if use_atom:
+                if undirected:
+                    wp_n = wx
+                else:
+                    _, wp_n = rejection.membership(graph, prev, cur_rows)
+                theta_n = _theta_from(graph, wp_n, cur_rows, excess, alpha_np)
+                theta = torch.where(adv, theta_n, theta)
+                wp = torch.where(adv, wp_n, wp)
+
+        # block boundary: flush done lanes' rows, then claim new walks
+        tgt = torch.where(done, wid, w_total).long()
+        big[tgt] = buf_l[:, : walk_length + 1]
+        eff_big[tgt] = eff_l
+        rank = torch.cumsum(done.to(torch.int32), dim=0, dtype=torch.int32)
+        wid_new = next_w + rank - 1
+        claim = done & (wid_new < w_total)
+        next_w = torch.clamp(next_w + rank[-1], max=w_total)
+        wid = torch.where(claim, wid_new, wid)
+        cur = torch.where(claim, starts[torch.clamp(wid_new, max=w_total - 1).long()], cur)
+        step = torch.where(claim, 1, step)
+        eff_l = torch.where(claim, walk_length + 1, eff_l)
+        buf_l[:, 0] = torch.where(claim, cur, buf_l[:, 0])
+        active = active | claim
+        done = torch.zeros_like(done)  # flushed; unclaimed lanes retire
+        if use_atom:
+            theta = torch.where(claim, 0.0, theta)
+            wp = torch.where(claim, 0.0, wp)
+        cur_rows = torch.where(claim[:, None], graph.gather_rows(cur), cur_rows)
+        pending = int(active.sum())  # the one host read per block
+
+    # lanes cut off by the round cap flush their partial rows; their eff
+    # records the columns actually written
+    residual = active | done
+    eff_l = torch.where(active, torch.minimum(eff_l, step), eff_l)
+    tgt = torch.where(residual, wid, w_total).long()
+    big[tgt] = buf_l[:, : walk_length + 1]
+    eff_big[tgt] = eff_l
+    big, eff_big = big[:w_total], eff_big[:w_total]
+    # resting emission: columns at/past the effective length repeat the
+    # walk's final node
+    last = big.gather(1, (eff_big[:, None] - 1).long())
+    walks = torch.where(cols_row[None, :] < eff_big[:, None], big, last)
+    if return_rounds:
+        return walks, eff_big, t
+    return walks, eff_big
+
+
+def generate_walks_amortized(
+    graph: DeviceCSR,
+    start: torch.Tensor,
+    draws: DrawFn,
+    walk_length: int,
+    p: float,
+    q: float,
+    extend: bool,
+    round_cap_factor: int = 40,
+    return_rounds: bool = False,
+    undirected: Optional[bool] = None,
+    unroll: int = 4,
+):
+    """Per-batch hub walker amortizing rejection retries ACROSS steps.
+
+    Each round every walker runs one trial block; a lane that rejects
+    stays put and retries next round with fresh draws while the others
+    advance. Walk semantics (start column, early termination, effective
+    lengths, resting emission) match ``generate_walks``; the law is the
+    exact second-order one, including the return-edge atom that removes
+    1/p from the rejection bound. The first step is a plain first-order
+    ``propose`` fed by ``draws(FIRST, deg)``.
+
+    Args:
+        start: [B] int32 start nodes.
+        draws: the per-round draws (``TrialDrawStream`` or injected).
+        round_cap_factor: safety bound, at most ``L * factor + 64``
+            rounds; lanes still short of L columns then emit their
+            resting node.
+        undirected: as in ``generate_walks_queued``.
+        unroll: rounds per host read of the pending count.
+
+    Returns:
+        walks: [B, L + 1] int32; eff_len: [B] int32;
+        (+ rounds taken when ``return_rounds``).
+    """
+    if undirected is None:
+        undirected = graph.symmetric
+    dev = graph.fused.device
+    start = start.to(device=dev, dtype=torch.int32)
+    b = start.shape[0]
+    sentinel = graph.num_nodes
+    alpha_np = max(1.0, 1.0 / q)  # bound over non-return candidates
+    excess = 1.0 / p - alpha_np
+    use_atom = excess > 0.0
+    use_cdf = "cdf" in graph.channels
+    trial_fn = _trial_fn(graph, p, q, extend, alpha_np, use_cdf)
+
+    start_rows = graph.gather_rows(start)
+    alive0 = graph.rows_nbr(start_rows)[:, 0] != sentinel
+    d0 = draws(FIRST, graph.rows_degree(start_rows))[0]
+    first, w_first = rejection.propose(
+        graph, d0.u_small, start_rows, use_cdf, d0.kk, d0.u_self
+    )
+    col1 = torch.where(alive0, first, start)
+    eff = torch.where(alive0, walk_length + 1, 1).to(torch.int32)
+    if walk_length == 1:
+        walks1 = torch.stack([start, col1], dim=1)
+        return (walks1, eff, 0) if return_rounds else (walks1, eff)
+
+    col1_rows = graph.gather_rows(col1)
+    has1 = graph.rows_nbr(col1_rows)[:, 0] != sentinel
+    eff = torch.where(alive0 & ~has1, 2, eff).to(torch.int32)
+    alive = alive0 & has1
+
+    # column L + 1 takes the writes of lanes that did not advance
+    buf = torch.zeros((b, walk_length + 2), dtype=torch.int32, device=dev)
+    buf[:, 0] = start
+    buf[:, 1] = col1
+
+    if use_atom:
+        if undirected:
+            wp = w_first  # w(col1 -> start) == the first proposal's weight
+        else:
+            _, wp = rejection.membership(graph, start, col1_rows)
+        theta = _theta_from(graph, wp, col1_rows, excess, alpha_np)
+    else:
+        theta = wp = None
+
+    cur, prev, cur_rows, prev_rows = col1, start, col1_rows, start_rows
+    step = torch.full((b,), 2, dtype=torch.int32, device=dev)
+    round_cap = walk_length * round_cap_factor + 64
+    unroll = max(int(unroll), 1)
+
+    def pending_count() -> int:
+        return int((alive & (step <= walk_length)).sum())
+
+    t = 0
+    pending = pending_count()
+    while pending > 0 and t < round_cap:
+        for _ in range(unroll):
+            needs = alive & (step <= walk_length)
+            x, ok, wx = trial_fn(
+                draws(t, graph.rows_degree(cur_rows)), prev, cur_rows,
+                prev_rows, theta, wp,
+            )
+            t += 1
+            adv = needs & ok
+            col = torch.where(adv, step, walk_length + 1)
+            buf.scatter_(1, col[:, None].long(), x[:, None])
+            prev = torch.where(adv, cur, prev)
+            cur = torch.where(adv, x, cur)
+            prev_rows = torch.where(adv[:, None], cur_rows, prev_rows)
+            cur_rows = graph.gather_rows(cur)  # the one row gather per round
+            step = step + adv.to(torch.int32)
+            # arrival check: stepping onto a node with no out-edges ends
+            # the walk, recording the effective length
+            has = graph.rows_nbr(cur_rows)[:, 0] != sentinel
+            died = adv & ~has & (step <= walk_length)
+            eff = torch.where(died, step, eff)
+            alive = alive & ~died
+            if use_atom:
+                if undirected:
+                    wp_n = wx  # w(new cur -> new prev) == w(cur -> x)
+                else:
+                    _, wp_n = rejection.membership(graph, prev, cur_rows)
+                theta_n = _theta_from(graph, wp_n, cur_rows, excess, alpha_np)
+                theta = torch.where(adv, theta_n, theta)
+                wp = torch.where(adv, wp_n, wp)
+        pending = pending_count()  # the one host read per block
+
+    # resting emission: columns past the effective length (or past a
+    # round-cap truncation) repeat the walker's final node
+    cols = torch.arange(walk_length + 1, dtype=torch.int32, device=dev)[None, :]
+    fill_from = torch.minimum(eff, step)[:, None]
+    walks = torch.where(cols < fill_from, buf[:, : walk_length + 1], cur[:, None])
+    if return_rounds:
+        return walks, eff, t
+    return walks, eff

@@ -73,6 +73,22 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
+    ptr, i64, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    lib.pecanpy_trial_propose.argtypes = [
+        ptr, i64, i32, i32,  # rows, stride, dpad, cdf_off
+        ptr, i64, ptr, ptr,  # edge_pack, n_slots, kk, u
+        ptr, ptr, ptr, ptr, ptr,  # theta, wp, prev, x_out, w_out
+        i64, i32, i32, ptr,  # B, T, num_nodes, stream
+    ]
+    lib.pecanpy_trial_accept.argtypes = [
+        ptr, i64, i32, ptr, i64,  # rows, stride, dpad, hbuckets, n_buckets
+        ptr, ptr, ptr, ptr, ptr,  # xs, ws, u, prev, force_ok
+        f32, f32, f32, i32,  # inv_p, inv_q, alpha_np, use_atom
+        ptr, ptr, ptr,  # chosen, got, chosen_w
+        i64, i32, i32, ptr,  # B, T, num_nodes, stream
+    ]
+    for name in ("pecanpy_trial_propose", "pecanpy_trial_accept"):
+        getattr(lib, name).restype = ctypes.c_int
     lib.pecanpy_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pecanpy_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,11 +1,11 @@
-"""Fused-row device layout for the walk engine.
+"""Fused-row device layout for the walk engines.
 
 Counterpart of ``pecanpy_tpu/ops/layout.py``, kept bit for bit: every
 walk step needs one node's neighbor ids, edge weights and (node2vec+)
 neighbor thresholds, and all of them live in ONE fixed-width float32 row,
 channel-packed:
 
-    fused[i] = [ nbr (int32 bitcast) | wgt | thr? ]    width = C * dpad
+    fused[i] = [ nbr (int32 bitcast) | wgt | thr? | cdf? ]  width = C * dpad
 
 so a batch of B walkers fetches all per-node state with one row gather.
 
@@ -21,11 +21,15 @@ Layout invariants (the transition functions rely on all of these):
 * ``wgt`` is 0 at padded slots, so padding carries zero probability.
 * ``thr`` (node2vec+ only) holds the noise threshold of the neighbor in
   each slot; padding 1.0.
-* ``dpad`` is the true max degree rounded up to 64 lanes.
+* ``cdf`` (hub graphs, within a memory budget) holds the normalized
+  inclusive first-order CDF of the row; padding 1.0.
+* ``dpad`` is the fused width rounded up to 64 lanes.
 
-Graphs whose max degree exceeds ``degree_cap`` (power-law hubs) need the
-JAX package's hub structures and rejection sampler, which are not ported
-yet: building such a graph raises ``NotImplementedError``.
+Degree skew: rows are padded to ``min(max_degree, degree_cap)``. Nodes
+above the cap (power-law hubs) store a 4-slot marker instead
+(``ops/hubs.py``) and are served by two flat tables, ``edge_pack``
+(resolved alias slots) and ``hbuckets`` (neighbor hash buckets), which
+drive the exact rejection sampler of ``ops/rejection.py``.
 """
 import dataclasses
 import os
@@ -34,19 +38,42 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from pecanpy_tpu_torch.ops import hubs as hubs_lib
+
 LANE = 64  # fused channel width granularity (f32 lanes)
 
 # Nodes above this degree are hubs (``pecanpy_tpu/ops/layout.py``).
 DEFAULT_DEGREE_CAP = 128
 
-HUB_PATH_ROADMAP = (
-    "the hub path (rejection walkers and the trial kernels) is not ported "
-    "yet: see ROADMAP.md, 'Modules to port', slice C"
-)
-
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+# Hub-table row shapes (``pecanpy_tpu/ops/layout.py:69-90``): both tables
+# are stored as 64-lane super-rows, 8 alias slots (8 lanes each) or 4 hash
+# buckets (8 key lanes + 8 value lanes) per stored row, padded to a whole
+# super-row at the end. The port keeps the storage so that JAX layouts
+# carry across bit for bit; its accessors and kernels address logical
+# rows of the flat table directly.
+HB_WIDTH = 2 * hubs_lib.BUCKET_WIDTH  # 8 key lanes (int32 bitcast) + 8 vals
+SUPER_W = 64  # stored row width of both hub tables
+EP_SUPER = SUPER_W // hubs_lib.EP_WIDTH  # alias slots per stored row (8)
+HB_SUPER = SUPER_W // HB_WIDTH  # hash buckets per stored row (4)
+
+
+def _pack_super(rows: np.ndarray) -> np.ndarray:
+    """Host-side reshape of [R, w] logical rows into [*, 64] super-rows."""
+    r, w = rows.shape
+    per = SUPER_W // w
+    pad = (-r) % per
+    if pad:
+        rows = np.pad(rows, ((0, pad), (0, 0)))
+    return rows.reshape(-1, SUPER_W)
+
+
+def _empty_table():
+    return torch.empty((0, SUPER_W), dtype=torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,22 +86,34 @@ class DeviceCSR:
         threshold: [N + 1] float32 node2vec+ noise thresholds; the
             sentinel slot holds 1.0.
         indptr: [N + 1] int32 row offsets of the flat CSR.
+        edge_pack: [*, 64] float32 alias-slot super-rows of the hub edges
+            (empty without hubs; ``ops/hubs.py`` has the slot layout).
+        hbuckets: [*, 64] float32 hash-bucket super-rows of the hubs'
+            neighbors (empty without hubs).
         channels: channel names in row order, e.g. ("nbr", "wgt").
         dpad: padded slots per channel (multiple of 64).
         max_degree: true max degree.
         gamma: node2vec+ noise-threshold std multiplier.
-        symmetric: the CSR equals its transpose (weights bit-exact).
+        has_hubs: some node's degree exceeds the cap (its row is a marker).
+        symmetric: the CSR equals its transpose (weights bit-exact); lets
+            the hub walkers reuse an accepted proposal's weight as the
+            next return-edge weight. False is always safe.
+        hub_frac: share of edges on hub nodes, rounded to 0.01.
     """
 
     fused: torch.Tensor
     deg: torch.Tensor
     threshold: torch.Tensor
     indptr: torch.Tensor
+    edge_pack: torch.Tensor = dataclasses.field(default_factory=_empty_table)
+    hbuckets: torch.Tensor = dataclasses.field(default_factory=_empty_table)
     channels: Tuple[str, ...] = ("nbr", "wgt")
     dpad: int = LANE
     max_degree: int = 0
     gamma: float = 0.0
+    has_hubs: bool = False
     symmetric: bool = False
+    hub_frac: float = 0.0
 
     @property
     def num_nodes(self) -> int:
@@ -97,9 +136,77 @@ class DeviceCSR:
         for node2vec+ graphs)."""
         return self.channel(rows, "thr")
 
+    def rows_cdf(self, rows: torch.Tensor) -> torch.Tensor:
+        return self.channel(rows, "cdf")
+
     def gather_rows(self, idx: torch.Tensor) -> torch.Tensor:
         """Fetch fused rows for a batch of node indices (the hot gather)."""
         return self.fused[idx.long()]
+
+    # -- hub-row decoding (see ops/hubs.py for the encoding) ----------------
+
+    def rows_is_hub(self, rows: torch.Tensor) -> torch.Tensor:
+        """[B] bool: the row belongs to a hub (degree > degree_cap)."""
+        return self.rows_nbr(rows)[:, 0] > self.num_nodes
+
+    def rows_degree(self, rows: torch.Tensor) -> torch.Tensor:
+        """[B] int32 true degree, decoding hub markers."""
+        nbr = self.rows_nbr(rows)
+        counted = (nbr != self.num_nodes).sum(dim=-1, dtype=torch.int32)
+        hub_deg = nbr[:, 0] - (self.num_nodes + 1)
+        return torch.where(nbr[:, 0] > self.num_nodes, hub_deg, counted)
+
+    def rows_edge_base(self, rows: torch.Tensor) -> torch.Tensor:
+        """[B] int32 base row into the logical edge_pack (hub rows only)."""
+        return self.rows_nbr(rows)[:, 1]
+
+    def rows_hash_meta(self, rows: torch.Tensor):
+        """[B] (base bucket row, log2 bucket count) of the hub hashes."""
+        nbr = self.rows_nbr(rows)
+        return nbr[:, 2], nbr[:, 3]
+
+    def rows_hub_threshold(self, rows: torch.Tensor) -> torch.Tensor:
+        """[B] noise threshold stored in hub rows (wgt channel slot 0)."""
+        return self.rows_wgt(rows)[:, 0]
+
+    def rows_hub_wsum(self, rows: torch.Tensor) -> torch.Tensor:
+        """[B] total edge weight stored in hub rows (wgt channel slot 1)."""
+        return self.rows_wgt(rows)[:, 1]
+
+    # -- hub-table lookups ----------------------------------------------------
+
+    def _fetch_ep_super(self, row: torch.Tensor) -> torch.Tensor:
+        """[..., 64] edge_pack super-rows, index clipped into the table
+        (as the JAX package clips: non-hub lanes compute garbage slots)."""
+        hi = max(self.edge_pack.shape[0] - 1, 0)
+        return self.edge_pack[torch.clamp(row, 0, hi).long()]
+
+    def _fetch_hb_super(self, row: torch.Tensor) -> torch.Tensor:
+        """[..., 64] hbuckets super-rows, index clipped into the table."""
+        hi = max(self.hbuckets.shape[0] - 1, 0)
+        return self.hbuckets[torch.clamp(row, 0, hi).long()]
+
+    @staticmethod
+    def _sub_row(sup: torch.Tensor, sub: torch.Tensor, per: int) -> torch.Tensor:
+        """Sub-row ``sub`` of each [..., 64] super-row, as int32 bits."""
+        width = SUPER_W // per
+        rows = sup.view(torch.int32).reshape(*sup.shape[:-1], per, width)
+        idx = sub.long()[..., None, None].expand(*sub.shape, 1, width)
+        return rows.gather(-2, idx).squeeze(-2)
+
+    def fetch_edge_slots(self, slot: torch.Tensor) -> torch.Tensor:
+        """[..., EP_WIDTH] resolved alias slot rows by global slot index."""
+        sup = self._fetch_ep_super(torch.div(slot, EP_SUPER, rounding_mode="floor"))
+        return self._sub_row(sup, torch.remainder(slot, EP_SUPER), EP_SUPER).view(
+            torch.float32
+        )
+
+    def fetch_bucket(self, bucket: torch.Tensor):
+        """(keys [..., 8] int32, vals [..., 8] f32) of one hash bucket."""
+        sup = self._fetch_hb_super(torch.div(bucket, HB_SUPER, rounding_mode="floor"))
+        row_i = self._sub_row(sup, torch.remainder(bucket, HB_SUPER), HB_SUPER)
+        w = hubs_lib.BUCKET_WIDTH
+        return row_i[..., :w], row_i[..., w:].contiguous().view(torch.float32)
 
     @property
     def nbr(self) -> torch.Tensor:
@@ -172,6 +279,7 @@ def build_device_csr(
     gamma: float = 0.0,
     max_degree: Optional[int] = None,
     with_thresholds: bool = False,
+    with_cdf: bool = False,
     degree_cap: Optional[int] = DEFAULT_DEGREE_CAP,
     symmetric: Optional[bool] = None,
     device="cuda",
@@ -185,8 +293,9 @@ def build_device_csr(
         gamma: node2vec+ noise-threshold std multiplier.
         max_degree: optional fused row-width override.
         with_thresholds: add the per-neighbor threshold channel (node2vec+).
-        degree_cap: a graph whose max degree exceeds this has hubs, and
-            raises ``NotImplementedError`` (the hub path is not ported).
+        with_cdf: add the per-node first-order CDF channel.
+        degree_cap: nodes above this degree become hubs, served by the
+            flat hub tables and rejection sampling (``ops/hubs.py``).
             None pads every row to the true max degree, under the same
             byte budget as the JAX package.
         symmetric: declare the graph symmetric (True), directed (False),
@@ -202,12 +311,8 @@ def build_device_csr(
     if symmetric is None:
         symmetric = edges_symmetric(indptr, indices, data)
 
-    if degree_cap is not None and true_max > degree_cap:
-        raise NotImplementedError(
-            f"max degree {true_max} exceeds degree_cap={degree_cap}: "
-            f"{HUB_PATH_ROADMAP}"
-        )
-    width = true_max
+    has_hubs = degree_cap is not None and true_max > degree_cap
+    width = min(true_max, degree_cap) if has_hubs else true_max
     if max_degree is not None:
         if max_degree < width:
             raise ValueError(
@@ -219,7 +324,7 @@ def build_device_csr(
     if degree_cap is None:
         # same hard byte budget as the JAX package: one skewed node pads
         # every row to its degree
-        n_channels = 2 + int(with_thresholds)
+        n_channels = 2 + int(with_thresholds) + int(with_cdf)
         fused_bytes = num_nodes * dpad * n_channels * 4
         budget = (
             int(os.environ.get("PECANPY_TPU_FUSED_BUDGET_MB", "8192"))
@@ -231,7 +336,8 @@ def build_device_csr(
                 f"slots x {n_channels} channels = {fused_bytes / 2**30:.1f} "
                 f"GiB (> {budget / 2**30:.1f} GiB budget, "
                 "PECANPY_TPU_FUSED_BUDGET_MB). The max degree "
-                f"({true_max}) is too skewed for degree_cap=None."
+                f"({true_max}) is too skewed for degree_cap=None: set a "
+                "degree_cap."
             )
 
     thresholds = np.concatenate(
@@ -240,16 +346,60 @@ def build_device_csr(
 
     nbr_p = np.full((num_nodes, dpad), num_nodes, dtype=np.int32)
     wgt_p = np.zeros((num_nodes, dpad), dtype=np.float32)
+    is_hub_node = deg > degree_cap if has_hubs else np.zeros(num_nodes, bool)
     if indices.size:
         row_of_edge = np.repeat(np.arange(num_nodes), deg)
         col_of_edge = np.arange(indices.size) - indptr[row_of_edge]
-        nbr_p[row_of_edge, col_of_edge] = indices
-        wgt_p[row_of_edge, col_of_edge] = data
+        keep = ~is_hub_node[row_of_edge]
+        nbr_p[row_of_edge[keep], col_of_edge[keep]] = indices[keep]
+        wgt_p[row_of_edge[keep], col_of_edge[keep]] = data[keep]
+
+    if has_hubs:
+        hub_ids = np.nonzero(is_hub_node)[0]
+        hub_edges = int(deg[is_hub_node].astype(np.int64).sum())
+        hub_frac = round(hub_edges / max(int(indptr[-1]), 1), 2)
+        (
+            edge_pack,
+            hub_base,
+            hkey8,
+            hval8,
+            bucket_base,
+            bucket_log,
+        ) = hubs_lib.build_hub_structures(indptr, indices, data, hub_ids)
+        # marker encoding (see ops/hubs.py HUB_MARKER_SLOTS)
+        nbr_p[hub_ids, 0] = num_nodes + 1 + deg[hub_ids]
+        nbr_p[hub_ids, 1] = hub_base
+        nbr_p[hub_ids, 2] = bucket_base
+        nbr_p[hub_ids, 3] = bucket_log
+        wgt_p[hub_ids, 0] = thresholds[hub_ids]
+        csum = np.concatenate([[0.0], np.cumsum(data, dtype=np.float64)])
+        wgt_p[hub_ids, 1] = (
+            csum[indptr[hub_ids + 1]] - csum[indptr[hub_ids]]
+        ).astype(np.float32)
+        # keys bitcast into the left half of the bucket row, values right
+        buckets = np.concatenate([hkey8.view(np.float32), hval8], axis=1)
+        hub_tables = dict(
+            edge_pack=_pack_super(edge_pack), hbuckets=_pack_super(buckets)
+        )
+    else:
+        hub_frac = 0.0
+        hub_tables = dict(
+            edge_pack=np.empty((0, SUPER_W), dtype=np.float32),
+            hbuckets=np.empty((0, SUPER_W), dtype=np.float32),
+        )
 
     channels_data = [("nbr", nbr_p), ("wgt", wgt_p)]
     if with_thresholds:
-        thr_p = thresholds[np.minimum(nbr_p, num_nodes)]
+        thr_p = np.ones((num_nodes, dpad), dtype=np.float32)
+        small = ~is_hub_node
+        thr_p[small] = thresholds[np.minimum(nbr_p[small], num_nodes)]
         channels_data.append(("thr", thr_p))
+    if with_cdf:
+        cdf = np.cumsum(wgt_p, axis=1, dtype=np.float64)
+        total = np.maximum(cdf[:, -1:], 1e-30)
+        cdf_p = np.minimum(cdf / total, 1.0).astype(np.float32)
+        cdf_p[is_hub_node] = 1.0  # hub rows draw from the alias tables
+        channels_data.append(("cdf", cdf_p))
 
     def put(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
@@ -259,11 +409,15 @@ def build_device_csr(
         deg=put(deg),
         threshold=put(thresholds),
         indptr=put(indptr.astype(np.int32)),
+        edge_pack=put(hub_tables["edge_pack"]),
+        hbuckets=put(hub_tables["hbuckets"]),
         channels=tuple(name for name, _ in channels_data),
         dpad=dpad,
         max_degree=true_max,
         gamma=gamma,
+        has_hubs=has_hubs,
         symmetric=bool(symmetric),
+        hub_frac=hub_frac,
     )
 
 
@@ -272,6 +426,7 @@ def device_csr_from_dense(
     gamma: float = 0.0,
     max_degree: Optional[int] = None,
     with_thresholds: bool = False,
+    with_cdf: bool = False,
     degree_cap: Optional[int] = DEFAULT_DEGREE_CAP,
     symmetric: Optional[bool] = None,
     device="cuda",
@@ -293,6 +448,7 @@ def device_csr_from_dense(
         gamma=gamma,
         max_degree=max_degree,
         with_thresholds=with_thresholds,
+        with_cdf=with_cdf,
         degree_cap=degree_cap,
         symmetric=symmetric,
         device=device,
@@ -303,18 +459,9 @@ def from_numpy(host, device="cpu") -> DeviceCSR:
     """The port's ``DeviceCSR`` from a JAX-package one with numpy leaves.
 
     ``host`` is any object with the JAX ``DeviceCSR`` attributes, e.g.
-    ``jax.tree.map(np.asarray, jax_csr)``. Only graphs without hubs carry
-    over. A channel the port does not read (the PreComp ``cdf``) raises.
+    ``jax.tree.map(np.asarray, jax_csr)``; hub tables and every channel
+    carry over bit for bit.
     """
-    if getattr(host, "has_hubs", False):
-        raise NotImplementedError(HUB_PATH_ROADMAP)
-    channels = tuple(host.channels)
-    unknown = set(channels) - {"nbr", "wgt", "thr"}
-    if unknown:
-        raise NotImplementedError(
-            f"fused channels {sorted(unknown)} belong to modes that are not "
-            "ported yet (ROADMAP.md, 'Modules to port')"
-        )
 
     def put(arr):
         return torch.from_numpy(np.array(arr)).to(device)
@@ -324,9 +471,13 @@ def from_numpy(host, device="cpu") -> DeviceCSR:
         deg=put(host.deg),
         threshold=put(host.threshold),
         indptr=put(host.indptr),
-        channels=channels,
+        edge_pack=put(host.edge_pack),
+        hbuckets=put(host.hbuckets),
+        channels=tuple(host.channels),
         dpad=int(host.dpad),
         max_degree=int(host.max_degree),
         gamma=float(host.gamma),
+        has_hubs=bool(host.has_hubs),
         symmetric=bool(host.symmetric),
+        hub_frac=float(host.hub_frac),
     )

@@ -2,16 +2,21 @@
 """Where the PyTorch port's time goes, on one NVIDIA GPU.
 
     python3 profile_port.py [--out chiprun_out/profile_port.txt]
+                            [--sections walks,sgns,hub]
 
-Runs the configuration of ``chip_smoke.py``'s main path (the 1M-node,
-mean-degree-16 weighted graph of ``bench.py``, p=0.5, q=2, walks of 80
-steps, dim 128, window 10, bf16 tables) and measures two steady-state
-windows:
+Runs the configurations of ``chip_smoke.py`` (p=0.5, q=2, walks of 80
+steps) and measures three steady-state windows:
 
-- walks: ``simulate_walks_device(1, 80)`` after a warm-up;
-- SGNS: ``WINDOW_STEPS`` chunk-steps of ``make_step_body`` after
+- walks: on the main path's graph (the 1M-node, mean-degree-16 weighted
+  graph of ``bench.py``), ``simulate_walks_device(1, 80)`` after a
+  warm-up;
+- SGNS: on the same walks, ``WINDOW_STEPS`` chunk-steps of
+  ``make_step_body`` (dim 128, window 10, bf16 tables) after
   ``WARMUP_STEPS`` (the step ``sgns.train`` runs, without its setup and
-  final table fetch).
+  final table fetch);
+- hub: on the hub path's graph (the 1M-node Chung-Lu power-law graph of
+  ``benchmarks/bench_powerlaw.py``), one dispatch of the queued engine:
+  262,144 walks of 80 steps on 32,768 lanes, reported per round.
 
 Each window is timed twice: on the host clock with a synchronize at each
 end (ms per step, rate), and under ``torch.profiler`` (device time by
@@ -70,26 +75,27 @@ def profiled(fn, label, out):
         log(f"    {e.key[:40]:40s} {_self_device_us(e) / 1e3:9.3f} ms device, "
             f"{e.count} calls")
     for e in kernels:  # the port's own kernels have no aten op
-        if "apply_sorted_kernel" in e.key:
-            log(f"    {'csrc/apply.cu':40s} {_self_device_us(e) / 1e3:9.3f} ms device, "
-                f"{e.count} calls")
+        for tag in ("apply_sorted_kernel", "trial_propose_kernel", "trial_accept_kernel"):
+            if tag in e.key:
+                log(f"    {'csrc: ' + tag:40s} {_self_device_us(e) / 1e3:9.3f} ms device, "
+                    f"{e.count} calls")
     return host_s, (busy_us / 1e6 if busy_us > 0 else None)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "profile_port.txt"))
+    ap.add_argument("--sections", default="walks,sgns,hub",
+                    help="comma-separated subset of walks, sgns, hub")
     args = ap.parse_args()
+    sections = set(args.sections.split(","))
 
     import tempfile
 
     import torch
 
     sys.path.insert(0, REPO)
-    from chip_smoke import (DIM, MEAN_DEGREE, NODES, WALK_LENGTH, WINDOW,
-                            build_bench_graph, nvidia_smi_line)
-    from pecanpy_tpu_torch import pecanpy
-    from pecanpy_tpu_torch.models import sgns
+    from chip_smoke import nvidia_smi_line
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch finds no CUDA device: this script needs a GPU")
@@ -98,65 +104,119 @@ def main():
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
 
     with tempfile.TemporaryDirectory() as tmp, open(args.out, "w") as out:
-        indptr, indices, data = build_bench_graph(NODES, MEAN_DEGREE)
-        path = os.path.join(tmp, "bench_graph.csr.npz")
-        np.savez(path, indptr=indptr, indices=indices, data=data)
-        g = pecanpy.SparseOTF(p=0.5, q=2.0, random_state=0, device="cuda")
-        g.read_npz(path, weighted=True, implicit_ids=True)
-        g.preprocess_transition_probs()
-        g.simulate_walks_device(1, 8)  # warm-up
-
-        result = {}
-
-        def walk():
-            result["walks"] = g.simulate_walks_device(1, WALK_LENGTH)
-
-        log("[walks] simulate_walks_device(1, 80), top ops by device time:")
-        host_s, busy_s = profiled(walk, "walks", out)
-        walks, eff = result["walks"]
-        steps = float((eff.to(torch.int64) - 1).sum())
-        chunks = -(-NODES // 131_072)
-        log(f"[walks] {host_s:.4f} s host clock: {steps / host_s:.4e} effective "
-            f"steps/s, {1e3 * host_s / (chunks * WALK_LENGTH):.4f} ms per step "
-            f"of {chunks} chunks x {WALK_LENGTH}")
-        if busy_s is not None:
-            log(f"[walks] device busy {busy_s:.4f} s under the profiler, "
-                f"{1e3 * busy_s / (chunks * WALK_LENGTH):.4f} ms per step: idle "
-                f"share {1 - busy_s / host_s:.4f} of the host-clock window")
-
-        # the SGNS step sgns.train runs, set up the way train sets it up
-        config = sgns.SGNSConfig(dim=DIM, window=WINDOW, seed=0)
-        counts = sgns._count_tokens(walks, eff, NODES)
-        keep_prob = sgns._keep_probs(counts, config.sample)
-        neg_table = torch.from_numpy(
-            sgns.build_negative_table(counts.cpu().numpy(), seed=0)).cuda()
-        dtype = sgns.resolve_table_dtype(config, NODES, "cuda")
-        w_in, w_out = sgns.init_tables(0, NODES, DIM, dtype, "cuda")
-        chunk = sgns.resolve_batch_walks(config, NODES, walks.shape[1])
-        step = sgns.make_step_body(NODES, config)
-        t = walks.shape[1]
-        eff_host = eff.cpu().numpy()
-
-        def run(first, count):
-            for i in range(first, first + count):
-                sl = slice(i * chunk, (i + 1) * chunk)
-                step(w_in, w_out, walks[sl], eff[sl], keep_prob, neg_table,
-                     config.alpha,
-                     sgns.draw_step(0, i, chunk, t, config, neg_table.shape[0], "cuda"))
-
-        run(0, WARMUP_STEPS)
-        a = WARMUP_STEPS
-        tokens = float(eff_host[a * chunk:(a + WINDOW_STEPS) * chunk].sum())
-        log(f"[sgns] {WINDOW_STEPS} chunk-steps of {chunk} walks ({dtype}), "
-            "top ops by device time:")
-        host_s, busy_s = profiled(lambda: run(a, WINDOW_STEPS), "sgns", out)
-        log(f"[sgns] {host_s:.4f} s host clock: {1e3 * host_s / WINDOW_STEPS:.4f} ms "
-            f"per chunk-step, {tokens / host_s:.4e} tokens/s")
-        if busy_s is not None:
-            log(f"[sgns] device busy {1e3 * busy_s / WINDOW_STEPS:.4f} ms per "
-                f"chunk-step under the profiler: idle share "
-                f"{1 - busy_s / host_s:.4f} of the host-clock window")
+        if sections & {"walks", "sgns"}:
+            profile_main(tmp, out, sections)
+        if "hub" in sections:
+            profile_hub(tmp, out)
         log(f"[done] op tables in {os.path.relpath(args.out, REPO)}")
+
+
+def profile_main(tmp, out, sections):
+    import torch
+
+    from chip_smoke import DIM, MEAN_DEGREE, NODES, WALK_LENGTH, WINDOW, build_bench_graph
+    from pecanpy_tpu_torch import pecanpy
+    from pecanpy_tpu_torch.models import sgns
+
+    indptr, indices, data = build_bench_graph(NODES, MEAN_DEGREE)
+    path = os.path.join(tmp, "bench_graph.csr.npz")
+    np.savez(path, indptr=indptr, indices=indices, data=data)
+    g = pecanpy.SparseOTF(p=0.5, q=2.0, random_state=0, device="cuda")
+    g.read_npz(path, weighted=True, implicit_ids=True)
+    g.preprocess_transition_probs()
+    g.simulate_walks_device(1, 8)  # warm-up
+
+    result = {}
+
+    def walk():
+        result["walks"] = g.simulate_walks_device(1, WALK_LENGTH)
+
+    log("[walks] simulate_walks_device(1, 80), top ops by device time:")
+    host_s, busy_s = profiled(walk, "walks", out)
+    walks, eff = result["walks"]
+    steps = float((eff.to(torch.int64) - 1).sum())
+    chunks = -(-NODES // 131_072)
+    log(f"[walks] {host_s:.4f} s host clock: {steps / host_s:.4e} effective "
+        f"steps/s, {1e3 * host_s / (chunks * WALK_LENGTH):.4f} ms per step "
+        f"of {chunks} chunks x {WALK_LENGTH}")
+    if busy_s is not None:
+        log(f"[walks] device busy {busy_s:.4f} s under the profiler, "
+            f"{1e3 * busy_s / (chunks * WALK_LENGTH):.4f} ms per step: idle "
+            f"share {1 - busy_s / host_s:.4f} of the host-clock window")
+
+    if "sgns" not in sections:
+        return
+    # the SGNS step sgns.train runs, set up the way train sets it up
+    config = sgns.SGNSConfig(dim=DIM, window=WINDOW, seed=0)
+    counts = sgns._count_tokens(walks, eff, NODES)
+    keep_prob = sgns._keep_probs(counts, config.sample)
+    neg_table = torch.from_numpy(
+        sgns.build_negative_table(counts.cpu().numpy(), seed=0)).cuda()
+    dtype = sgns.resolve_table_dtype(config, NODES, "cuda")
+    w_in, w_out = sgns.init_tables(0, NODES, DIM, dtype, "cuda")
+    chunk = sgns.resolve_batch_walks(config, NODES, walks.shape[1])
+    step = sgns.make_step_body(NODES, config)
+    t = walks.shape[1]
+    eff_host = eff.cpu().numpy()
+
+    def run(first, count):
+        for i in range(first, first + count):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            step(w_in, w_out, walks[sl], eff[sl], keep_prob, neg_table,
+                 config.alpha,
+                 sgns.draw_step(0, i, chunk, t, config, neg_table.shape[0], "cuda"))
+
+    run(0, WARMUP_STEPS)
+    a = WARMUP_STEPS
+    tokens = float(eff_host[a * chunk:(a + WINDOW_STEPS) * chunk].sum())
+    log(f"[sgns] {WINDOW_STEPS} chunk-steps of {chunk} walks ({dtype}), "
+        "top ops by device time:")
+    host_s, busy_s = profiled(lambda: run(a, WINDOW_STEPS), "sgns", out)
+    log(f"[sgns] {host_s:.4f} s host clock: {1e3 * host_s / WINDOW_STEPS:.4f} ms "
+        f"per chunk-step, {tokens / host_s:.4e} tokens/s")
+    if busy_s is not None:
+        log(f"[sgns] device busy {1e3 * busy_s / WINDOW_STEPS:.4f} ms per "
+            f"chunk-step under the profiler: idle share "
+            f"{1 - busy_s / host_s:.4f} of the host-clock window")
+
+
+def profile_hub(tmp, out):
+    """One queued-engine dispatch on the power-law graph, per round."""
+    import torch
+
+    from chip_smoke import HUB_LANES, NODES, TRIALS, WALK_LENGTH, build_powerlaw_graph
+    from pecanpy_tpu_torch import pecanpy
+    from pecanpy_tpu_torch.models import engine
+
+    indptr, indices, data = build_powerlaw_graph(NODES)
+    path = os.path.join(tmp, "powerlaw_graph.csr.npz")
+    np.savez(path, indptr=indptr, indices=indices, data=data)
+    g = pecanpy.SparseOTF(p=0.5, q=2.0, random_state=0, device="cuda")
+    g.read_npz(path, weighted=True, implicit_ids=True)
+    g.preprocess_transition_probs()
+    dg = g.get_device_graph()
+    walks_per = HUB_LANES * g._walk_queue_factor()
+    starts = torch.from_numpy(g._start_nodes(1)[:walks_per]).cuda()
+    result = {}
+
+    def dispatch(chunk_idx):
+        draws = engine.TrialDrawStream(0, chunk_idx, TRIALS, "cuda")
+        result["out"] = engine.generate_walks_queued(
+            dg, starts, draws, WALK_LENGTH, g.p, g.q, False, lanes=HUB_LANES,
+            return_rounds=True)
+
+    dispatch(0)  # warm-up
+    log(f"[hub] queued engine, {walks_per} walks of {WALK_LENGTH} steps on "
+        f"{HUB_LANES} lanes, top ops by device time:")
+    host_s, busy_s = profiled(lambda: dispatch(1), "hub", out)
+    _, eff, rounds = result["out"]
+    steps = float((eff.to(torch.int64) - 1).sum())
+    log(f"[hub] {host_s:.4f} s host clock, {rounds} rounds (each run): "
+        f"{1e3 * host_s / rounds:.4f} ms per round, {steps / host_s:.4e} "
+        "effective steps/s")
+    if busy_s is not None:
+        log(f"[hub] device busy {1e3 * busy_s / rounds:.4f} ms per round under the "
+            f"profiler: idle share {1 - busy_s / host_s:.4f} of the host-clock window")
 
 
 if __name__ == "__main__":

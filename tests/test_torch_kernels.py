@@ -1,4 +1,9 @@
-"""The CUDA applier kernel against its plain torch version, on the card.
+"""The CUDA kernels against their plain torch versions, on the card.
+
+The table applier (``csrc/apply.cu``) and the two rejection-trial kernels
+(``csrc/trial.cu``); the trial kernels must equal their plain version
+(``rejection._trial_block``) bit for bit, with the cdf channel on any
+weights and without it on integer weights.
 
 These tests need a CUDA device and the CUDA toolkit (``nvcc``); they skip
 without a device. They import torch and the port only (no jax), so they
@@ -185,3 +190,183 @@ def test_mean_updates_launch_the_kernel(cuda):
     )
     assert apply_lib.apply_sorted_stream.launches == before + 2
     torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
+
+
+# -- the rejection-trial kernels (csrc/trial.cu) ------------------------------
+
+
+def _hub_graph(seed, n=300, directed=False, float_weights=False):
+    """Random graph with integer weights 1..3 (exact prefix sums) or float
+    weights, degree cap at the median degree: about half the nodes are hubs."""
+    gen = np.random.default_rng(seed)
+    adj = (gen.random((n, n)) < 0.06).astype(np.float64)
+    if not directed:
+        adj = np.maximum(adj, adj.T)
+    np.fill_diagonal(adj, 0)
+    w = gen.integers(1, 4, (n, n)) + (gen.random((n, n)) if float_weights else 0)
+    adj = adj * (w if directed else np.triu(w) + np.triu(w, 1).T)
+    for i in np.nonzero(adj.sum(1) == 0)[0]:
+        adj[i, (i + 1) % n] = 1.0
+    cap = int(np.median((adj > 0).sum(1)))
+    return adj, cap
+
+
+def _trial_inputs(cuda, adj, cap, b, trials, use_cdf, seed, p=0.5, q=2.0, hub_lanes=True):
+    from pecanpy_tpu_torch.models import engine
+    from pecanpy_tpu_torch.ops import rejection
+    from pecanpy_tpu_torch.ops.layout import device_csr_from_dense
+
+    dg = device_csr_from_dense(adj, degree_cap=cap, with_cdf=use_cdf, device=cuda)
+    gen = np.random.default_rng(seed)
+    capped = (adj > 0).sum(1) <= cap
+    # (cur, prev) edges; without hub lanes both ends are capped nodes
+    cu, pr = np.nonzero(adj.T)  # every edge prev -> cur
+    keep = np.ones(cu.size, bool) if hub_lanes else capped[cu] & capped[pr]
+    pick = gen.choice(np.nonzero(keep)[0], b)
+    cur, prev = cu[pick], pr[pick]
+    cur_t = torch.from_numpy(cur.astype(np.int32)).to(cuda)
+    prev_t = torch.from_numpy(prev.astype(np.int32)).to(cuda)
+    cur_rows, prev_rows = dg.gather_rows(cur_t), dg.gather_rows(prev_t)
+    draws = engine.TrialDrawStream(seed, 0, trials, cuda)(0, dg.rows_degree(cur_rows))
+    alpha_np = max(1.0, 1.0 / q)
+    excess = 1.0 / p - alpha_np
+    theta = wp = None
+    if excess > 0:
+        _, wp = rejection.membership(dg, prev_t, cur_rows)
+        theta = engine._theta_from(dg, wp, cur_rows, excess, alpha_np)
+    return dg, draws, prev_t, cur_rows, prev_rows, alpha_np, theta, wp
+
+
+def _assert_bitwise(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b)
+
+
+@pytest.mark.parametrize("trials", [1, 2, 3])
+@pytest.mark.parametrize("p,q", [(0.5, 2.0), (2.0, 0.3)])  # atom on / off
+@pytest.mark.parametrize("use_cdf", [True, False])
+def test_trial_kernels_match_plain(cuda, trials, p, q, use_cdf):
+    from pecanpy_tpu_torch.ops import rejection, trialkernel
+
+    adj, cap = _hub_graph(trials)
+    b = 1001  # not a multiple of the 8-lane block
+    dg, draws, prev, cur_rows, prev_rows, alpha_np, theta, wp = _trial_inputs(
+        cuda, adj, cap, b, trials, use_cdf, seed=trials, p=p, q=q)
+    is_hub = dg.rows_is_hub(cur_rows)
+    assert 0 < int(is_hub.sum()) < b and 0 < int(dg.rows_is_hub(prev_rows).sum()) < b
+    force_ok = torch.rand(b, device=cuda) < 0.2
+    for force in (None, force_ok):
+        n_p, n_a = trialkernel.trial_propose.launches, trialkernel.trial_accept.launches
+        got = trialkernel.trial_block_fused(
+            dg, draws, prev, cur_rows, prev_rows, p, q, alpha_np, theta, wp,
+            use_cdf=use_cdf, force_ok=force)
+        torch.cuda.synchronize()
+        assert trialkernel.trial_propose.launches == n_p + 1
+        assert trialkernel.trial_accept.launches == n_a + 1
+        want = rejection._trial_block(
+            dg, draws, prev, cur_rows, prev_rows, p, q, False, alpha_np, theta, wp,
+            use_cdf=use_cdf, force_ok=force)
+        _assert_bitwise(got, want)
+    # each half against its own plain version
+    x, wx = trialkernel.trial_propose(dg, draws, prev, cur_rows, theta, wp, use_cdf)
+    _assert_bitwise((x, wx), trialkernel.trial_propose_plain(
+        dg, draws, prev, cur_rows, theta, wp, use_cdf))
+    _assert_bitwise(
+        trialkernel.trial_accept(dg, draws, x, wx, prev, prev_rows, p, q, alpha_np,
+                                 theta is not None, force_ok),
+        trialkernel.trial_accept_plain(dg, draws, x, wx, prev, prev_rows, p, q,
+                                       alpha_np, theta is not None, force_ok))
+
+
+def test_trial_kernels_no_hub_lanes(cuda):
+    """A batch whose cur and prev rows are all capped: no table index is
+    computed from a capped row's neighbor slots (a fault if it were)."""
+    from pecanpy_tpu_torch.ops import rejection, trialkernel
+
+    adj, cap = _hub_graph(7)
+    dg, draws, prev, cur_rows, prev_rows, alpha_np, theta, wp = _trial_inputs(
+        cuda, adj, cap, 777, 2, False, seed=7, hub_lanes=False)
+    assert not bool(dg.rows_is_hub(cur_rows).any())
+    got = trialkernel.trial_block_fused(
+        dg, draws, prev, cur_rows, prev_rows, 0.5, 2.0, alpha_np, theta, wp)
+    torch.cuda.synchronize()
+    want = rejection._trial_block(
+        dg, draws, prev, cur_rows, prev_rows, 0.5, 2.0, False, alpha_np, theta, wp)
+    _assert_bitwise(got, want)
+
+
+def test_trial_kernels_float_weights_with_cdf(cuda):
+    """With the cdf channel, kernel and plain read the same floats and agree
+    bit for bit on float weights too."""
+    from pecanpy_tpu_torch.ops import rejection, trialkernel
+
+    adj, cap = _hub_graph(3, float_weights=True, directed=True)
+    dg, draws, prev, cur_rows, prev_rows, alpha_np, theta, wp = _trial_inputs(
+        cuda, adj, cap, 4096, 2, True, seed=3)
+    got = trialkernel.trial_block_fused(
+        dg, draws, prev, cur_rows, prev_rows, 0.5, 2.0, alpha_np, theta, wp, use_cdf=True)
+    want = rejection._trial_block(
+        dg, draws, prev, cur_rows, prev_rows, 0.5, 2.0, False, alpha_np, theta, wp,
+        use_cdf=True)
+    _assert_bitwise(got, want)
+
+
+@pytest.mark.parametrize("queued", [True, False])
+def test_hub_engines_launch_the_trial_kernels(cuda, queued):
+    """Every round of both hub engines launches each trial kernel once."""
+    from pecanpy_tpu_torch.models import engine
+    from pecanpy_tpu_torch.ops import trialkernel
+    from pecanpy_tpu_torch.ops.layout import device_csr_from_dense
+
+    adj, cap = _hub_graph(11, float_weights=True)
+    dg = device_csr_from_dense(adj, degree_cap=cap, with_cdf=True, device=cuda)
+    start = torch.arange(adj.shape[0], dtype=torch.int32, device=cuda).repeat(4)
+    draws = engine.TrialDrawStream(0, 0, 2, cuda)
+    n_p, n_a = trialkernel.trial_propose.launches, trialkernel.trial_accept.launches
+    if queued:
+        walks, eff, rounds = engine.generate_walks_queued(
+            dg, start, draws, 12, 0.5, 2.0, False, lanes=256, return_rounds=True)
+    else:
+        walks, eff, rounds = engine.generate_walks_amortized(
+            dg, start, draws, 12, 0.5, 2.0, False, return_rounds=True)
+    torch.cuda.synchronize()
+    assert rounds > 0
+    assert trialkernel.trial_propose.launches - n_p == rounds
+    assert trialkernel.trial_accept.launches - n_a == rounds
+    w, e = walks.cpu().numpy(), eff.cpu().numpy()
+    for row, m in zip(w, e):
+        assert all(adj[a, b] != 0 for a, b in zip(row[: m - 1], row[1:m]))
+
+
+def test_trial_kernels_at_draw_boundaries(cuda):
+    """Draws placed exactly on the decision boundaries, where a random draw
+    almost never lands: u_small on a cdf value (``<`` against ``<=`` in
+    the CDF count) and u_acc on the accept probability or one ulp below
+    it. At p = 0.9, q = 0.3, alpha / alpha_np and alpha * (1 / alpha_np)
+    differ in the last bit, so a kernel that multiplied by the reciprocal
+    would flip accept bits here."""
+    from pecanpy_tpu_torch.ops import rejection, trialkernel
+
+    p, q = 0.9, 0.3
+    adj, cap = _hub_graph(5)
+    dg, draws, prev, cur_rows, prev_rows, alpha_np, theta, wp = _trial_inputs(
+        cuda, adj, cap, 2048, 1, True, seed=5, p=p, q=q)
+    assert theta is None
+    is_hub = dg.rows_is_hub(cur_rows)
+    on_cdf = torch.where(is_hub, 0.5, dg.rows_cdf(cur_rows)[:, 1])
+    d = draws[0]._replace(u_small=on_cdf.contiguous())
+    x_p, wx_p = trialkernel.trial_propose_plain(dg, [d], prev, cur_rows, use_cdf=True)
+    x, wx = trialkernel.trial_propose(dg, [d], prev, cur_rows, use_cdf=True)
+    _assert_bitwise((x, wx), (x_p, wx_p))
+    alpha = rejection._bias(dg, x[0], wx[0], prev, None, prev_rows, p, q, False)
+    accept = alpha / torch.full_like(alpha, alpha_np)
+    assert bool((accept != alpha * (1.0 / alpha_np)).any())
+    below = torch.arange(accept.numel(), device=cuda) % 2 == 1
+    u_acc = torch.where(below, torch.nextafter(accept, torch.zeros_like(accept)), accept)
+    d = d._replace(u_acc=u_acc.contiguous())
+    got = trialkernel.trial_accept(dg, [d], x, wx, prev, prev_rows, p, q, alpha_np, False)
+    want = trialkernel.trial_accept_plain(dg, [d], x, wx, prev, prev_rows, p, q, alpha_np, False)
+    _assert_bitwise(got, want)
+    assert torch.equal(got[1], below)

@@ -26,7 +26,7 @@ def assert_same_layout(port: layout.DeviceCSR, ref) -> None:
     assert port.dpad == ref.dpad
     assert port.max_degree == ref.max_degree
     assert port.symmetric == ref.symmetric
-    assert not ref.has_hubs
+    assert not ref.has_hubs and not port.has_hubs
     for name in ("fused", "threshold"):
         np.testing.assert_array_equal(
             _bits(getattr(port, name).numpy()), _bits(getattr(ref, name))
@@ -96,20 +96,27 @@ def test_dense_rows_bitwise(name):
     assert_same_layout(port, ref)
 
 
-def test_hub_graph_raises():
-    """A node above degree_cap needs the (unported) hub path: it raises,
-    never silently takes another path."""
+def test_hub_graph_raises(monkeypatch):
+    """A node above degree_cap becomes a hub row (a marker, no padding to
+    its degree); only the uncapped layout, padded to the true max degree,
+    raises once it exceeds the fused byte budget."""
     n = 200
     adj = np.zeros((n, n))
     adj[0, 1:] = adj[1:, 0] = 1.0  # star: node 0 has degree 199 > 128
     indptr, indices, data = _csr(adj)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layout.build_device_csr(indptr, indices, data, device="cpu")
-    # uncapped, the same graph packs (padded to the true max degree)
+    dg = layout.build_device_csr(indptr, indices, data, device="cpu")
+    assert dg.has_hubs and dg.dpad == 128  # the cap, not the hub's degree
+    assert int(dg.nbr[0, 0]) == n + 1 + 199 and dg.rows_degree(dg.fused[:1]).item() == 199
+    assert dg.edge_pack.shape == (-(-199 // layout.EP_SUPER), layout.SUPER_W)
+    # uncapped, the same graph packs (padded to the true max degree) ...
     dg = layout.build_device_csr(
         indptr, indices, data, degree_cap=None, device="cpu"
     )
-    assert dg.dpad == 256
+    assert dg.dpad == 256 and not dg.has_hubs
+    # ... unless that padding exceeds the byte budget
+    monkeypatch.setenv("PECANPY_TPU_FUSED_BUDGET_MB", "0")
+    with pytest.raises(ValueError, match="degree_cap"):
+        layout.build_device_csr(indptr, indices, data, degree_cap=None, device="cpu")
 
 
 def test_from_numpy_carries_jax_layout():

@@ -34,7 +34,9 @@ def test_sbm_embed_micro_f1(rng):
 def test_port_never_imports_jax():
     code = (
         "import sys, pecanpy_tpu_torch, pecanpy_tpu_torch.pecanpy, "
-        "pecanpy_tpu_torch.cli, pecanpy_tpu_torch.models.sgns; "
+        "pecanpy_tpu_torch.cli, pecanpy_tpu_torch.models.sgns, "
+        "pecanpy_tpu_torch.models.engine, pecanpy_tpu_torch.ops.hubs, "
+        "pecanpy_tpu_torch.ops.rejection, pecanpy_tpu_torch.ops.trialkernel; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert not any(m == 'pecanpy_tpu' or m.startswith('pecanpy_tpu.') "
         "for m in sys.modules), 'pecanpy_tpu imported'"
@@ -122,3 +124,4 @@ def test_build_dir_is_ignored():
     ignored = (REPO / ".gitignore").read_text().split()
     assert "build/" in ignored
     assert os.path.exists(_kernels.CSRC_DIR / "apply.cu")
+    assert os.path.exists(_kernels.CSRC_DIR / "trial.cu")
