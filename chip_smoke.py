@@ -26,7 +26,8 @@ Phases (any failure raises, and the script exits non-zero):
       their plain torch version on 32,768 edge lanes, trials = 2 with the
       return-edge atom, with and without ``force_ok``: bit for bit with
       the cdf channel, under ``NO_CDF_MISMATCH_SHARE`` without it; times
-      (CUDA events, median of 20);
+      (device time under ``torch.profiler``, mean of 20 calls; the
+      wrapper calls also by CUDA events, median of 20);
    c. ``simulate_walks_device(1, 80)`` through the queued engine: 2
       trial-kernel launches per round, every sampled step an edge;
    d. ``generate_walks_amortized`` on 32,768 starts;
@@ -64,6 +65,7 @@ TRIALS = 2
 NO_CDF_MISMATCH_SHARE = 1e-3  # of lanes
 LAW_SIGMAS = 5.0  # per-frequency tolerance of the second-order law check
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+SECTOR = 32  # bytes: the least the memory system moves for one gather
 
 
 def log(msg):
@@ -141,6 +143,35 @@ def cuda_median_ms(fn, reps=TIMING_REPS):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def self_device_us(evt) -> float:
+    """A ``torch.profiler`` event's own device time in microseconds."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def device_ms(fn, reps=TIMING_REPS):
+    """Mean device time of one call of ``fn``: the summed time of the
+    kernels it launches under ``torch.profiler``, without the host's
+    time between launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(self_device_us(e) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return us / 1e3 / reps
 
 
 def bf16_ulps(a, b):
@@ -433,23 +464,60 @@ def node2vec_probs(adj, cur, prev, p, q):
     return w / w.sum()
 
 
-def trial_bytes(dg, cur_rows, prev_rows, trials):
-    """Least bytes each trial kernel moves for these lanes: the channel a
-    capped row is read for (cdf or wgt in trial_propose, nbr in
-    trial_accept, dpad floats each) or a hub row's marker slots plus per
-    trial the alias fields used (12 B) or the 8 bucket keys (32 B); the
-    per-lane draws, atom inputs and outputs."""
-    b, row = cur_rows.shape[0], dg.dpad * 4
-    hub_c = int(dg.rows_is_hub(cur_rows).sum())
-    hub_p = int(dg.rows_is_hub(prev_rows).sum())
-    propose = (
-        (b - hub_c) * (row + trials * 8) + hub_c * (8 + trials * 12)
-        + b * (trials * 16 + 12) + b * trials * 8
-    )
-    accept = (
-        (b - hub_p) * row + hub_p * (16 + trials * 32)
-        + b * (trials * 12 + 5) + b * 9
-    )
+def search_sectors(deg):
+    """32-byte sectors a binary search over ``deg`` sorted 4-byte entries
+    touches: about log2 of the sector count to find the sector, plus it."""
+    import torch
+
+    n_sec = torch.clamp((deg + 7) // 8, min=1).double()
+    return torch.ceil(torch.log2(n_sec)) + 1
+
+
+def trial_bytes(dg, draws, prev, cur_rows, prev_rows, x, wx, p, q, alpha_np, theta):
+    """Least bytes each trial kernel must move for this run's lanes (the
+    cdf channel, the atom on), from each row's real degree, in 32-byte
+    sectors for the gathers:
+
+    trial_propose: per lane the head sector of the cur row (the hub
+    marker, a hub's alias base); a capped row adds the sector of its cdf
+    total and, per trial whose atom does not fire, a binary search over
+    its cdf entries and the sectors of the picked wgt and nbr slots (nbr
+    beyond the head sector); a hub row adds one alias slot per such trial.
+    trial_accept: per lane the head sector of the prev row (a hub's hash
+    meta); per trial that still decides the outcome (no earlier trial
+    accepted, x != prev), a hub row probes one bucket's keys, a capped
+    row searches its sorted nbr entries (or scans them, if fewer sectors).
+    Both: the per-lane draws, atom inputs and outputs, read or written
+    once. Returns (propose bytes, accept bytes)."""
+    import torch
+
+    from pecanpy_tpu_torch.ops import rejection
+
+    s = SECTOR
+    trials, b = draws.kk.shape
+    per_trial = draws.trials()
+    hub_c, hub_p = dg.rows_is_hub(cur_rows), dg.rows_is_hub(prev_rows)
+    deg_c, deg_p = dg.rows_degree(cur_rows), dg.rows_degree(prev_rows)
+
+    cdf = dg.rows_cdf(cur_rows)
+    pick = torch.stack([(cdf < (d.u_small * cdf[:, -1])[:, None]).sum(1) for d in per_trial])
+    pick = torch.clamp(pick, max=dg.dpad - 1)
+    no_atom = torch.stack([d.u_atom >= theta for d in per_trial])
+    capped_t = search_sectors(deg_c)[None] + 1 + (pick >= 8)
+    row_t = torch.where(hub_c[None], 1.0, capped_t) * no_atom
+    propose_rows = s * (float(row_t.sum()) + b + float((~hub_c).sum()))
+    propose = propose_rows + b * (trials * 16 + 12) + b * trials * 8
+
+    oks = torch.stack([
+        rejection._accept_trial(dg, d, x[t], wx[t], prev, None, prev_rows, p, q,
+                                False, alpha_np, True)
+        for t, d in enumerate(per_trial)])
+    earlier = torch.cumsum(oks.to(torch.int32), 0) - oks.to(torch.int32)
+    decides = ((earlier == 0) & (x != prev[None])).sum(0).double()
+    n_sec_p = torch.clamp((deg_p + 7) // 8, min=1).double()
+    capped_p = torch.clamp(torch.minimum(n_sec_p, decides * search_sectors(deg_p)), min=1)
+    accept_rows = s * float(torch.where(hub_p, 1 + decides, capped_p).sum())
+    accept = accept_rows + b * trials * 12 + b * 4 + b * 9
     return propose, accept
 
 
@@ -509,12 +577,13 @@ def phase_hub_path(tmp):
 
     def block(dg_, rows_c, rows_p, use_cdf, force, kernel):
         """The trial block through the kernels, or its plain version."""
-        args = (dg_, draws, prev, rows_c, rows_p, p, q)
         if kernel:
             return trialkernel.trial_block_fused(
-                *args, alpha_np, theta, wp, use_cdf=use_cdf, force_ok=force)
+                dg_, draws, prev, rows_c, rows_p, p, q, alpha_np, theta, wp,
+                use_cdf=use_cdf, force_ok=force)
         return rejection._trial_block(
-            *args, False, alpha_np, theta, wp, use_cdf=use_cdf, force_ok=force)
+            dg_, draws.trials(), prev, rows_c, rows_p, p, q, False, alpha_np,
+            theta, wp, use_cdf=use_cdf, force_ok=force)
 
     def n_differ(got, want):
         """Lanes where any of (chosen, got, chosen_w) differs."""
@@ -550,29 +619,32 @@ def phase_hub_path(tmp):
     err_accept = max(float((a.float() - b.float()).abs().max()) for a, b in zip(acc, acc_p))
     if err_propose or err_accept:
         raise AssertionError(f"kernel halves differ: {err_propose}, {err_accept}")
-    times = {
+    calls = {
         "trial_propose": (
-            cuda_median_ms(lambda: trialkernel.trial_propose(
+            lambda: trialkernel.trial_propose(dg, draws, prev, cur_rows, theta, wp, True),
+            lambda: trialkernel.trial_propose_plain(
                 dg, draws, prev, cur_rows, theta, wp, True)),
-            cuda_median_ms(lambda: trialkernel.trial_propose_plain(
-                dg, draws, prev, cur_rows, theta, wp, True))),
         "trial_accept": (
-            cuda_median_ms(lambda: trialkernel.trial_accept(
+            lambda: trialkernel.trial_accept(
+                dg, draws, x, wx, prev, prev_rows, p, q, alpha_np, True),
+            lambda: trialkernel.trial_accept_plain(
                 dg, draws, x, wx, prev, prev_rows, p, q, alpha_np, True)),
-            cuda_median_ms(lambda: trialkernel.trial_accept_plain(
-                dg, draws, x, wx, prev, prev_rows, p, q, alpha_np, True))),
     }
     block_ms = cuda_median_ms(lambda: block(dg, cur_rows, prev_rows, True, None, True))
     block_plain_ms = cuda_median_ms(lambda: block(dg, cur_rows, prev_rows, True, None, False))
-    nbytes = dict(zip(("trial_propose", "trial_accept"),
-                      trial_bytes(dg, cur_rows, prev_rows, TRIALS)))
+    nbytes = dict(zip(("trial_propose", "trial_accept"), trial_bytes(
+        dg, draws, prev, cur_rows, prev_rows, x, wx, p, q, alpha_np, theta)))
     results = {}
-    for name, (ms, plain_ms) in times.items():
+    for name, (kernel_fn, plain_fn) in calls.items():
+        ms, plain_ms = device_ms(kernel_fn), device_ms(plain_fn)
+        wrapper_ms, plain_wall_ms = cuda_median_ms(kernel_fn), cuda_median_ms(plain_fn)
         bound_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
         results[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              max_abs_err=err_propose if name == "trial_propose" else err_accept)
-        log(f"[6b trial] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-            f"{nbytes[name] / 1e6:.3f} MB at least: bound {bound_ms:.5f} ms")
+        log(f"[6b trial] {name}: device time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+            f"CUDA events over the call: wrapper {wrapper_ms:.4f} ms, plain "
+            f"{plain_wall_ms:.4f} ms; {nbytes[name] / 1e6:.3f} MB at least: bound "
+            f"{bound_ms:.5f} ms")
     log(f"[6b trial] whole trial block ({TRIALS} trials, {HUB_LANES} lanes): kernels "
         f"{block_ms:.4f} ms, plain {block_plain_ms:.4f} ms")
     del dg_nc, rows_nc, cur_rows, prev_rows

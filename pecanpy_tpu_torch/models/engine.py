@@ -32,21 +32,21 @@ where ``u`` is the step's [B, 1] uniforms. Walk semantics (reference
 * dead walkers keep emitting their resting node, which consumers never
   read because they cut each walk at its effective length.
 """
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from pecanpy_tpu_torch.ops import rejection, trialkernel
 from pecanpy_tpu_torch.ops.layout import DeviceCSR
-from pecanpy_tpu_torch.ops.rejection import TrialDraws
+from pecanpy_tpu_torch.ops.rejection import RoundDraws
 
 FirstFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 StepFn = Callable[..., torch.Tensor]
 # draws(round index, [B] int32 degree of each lane's current node) -> the
-# round's per-trial draws; the amortized engine's first-order draw asks
-# for round FIRST and reads one TrialDraws
-DrawFn = Callable[[int, torch.Tensor], List[TrialDraws]]
+# round's draws; the amortized engine's first-order draw asks for round
+# FIRST and reads its first trial
+DrawFn = Callable[[int, torch.Tensor], RoundDraws]
 FIRST = -1
 
 
@@ -73,20 +73,18 @@ class TrialDrawStream:
     """The hub engines' draws for one walk chunk: a ``DrawFn`` backed by
     one ``torch.Generator`` seeded from (seed, chunk index), as
     ``walk_uniforms`` is, so the chunk stream is reproducible. Each call
-    draws the round's uniforms in one [T, 5, B] block; ``kk`` comes from
-    its first row by ``rejection.slot_offsets``."""
+    draws [T, B] uniforms that ``rejection.slot_offsets`` turns into
+    ``kk``, then the [T, 4, B] block of the other uniforms."""
 
     def __init__(self, seed: int, chunk_idx: int, trials: int, device):
         self.gen = _chunk_generator(seed, chunk_idx, device)
         self.trials = trials
 
-    def __call__(self, round_idx: int, deg: torch.Tensor) -> List[TrialDraws]:
-        n = 1 if round_idx == FIRST else self.trials
-        u = torch.rand((n, 5, deg.shape[0]), generator=self.gen, device=deg.device)
-        return [
-            TrialDraws(rejection.slot_offsets(u[t, 0], deg), *u[t, 1:])
-            for t in range(n)
-        ]
+    def __call__(self, round_idx: int, deg: torch.Tensor) -> RoundDraws:
+        n, b = 1 if round_idx == FIRST else self.trials, deg.shape[0]
+        u_kk = torch.rand((n, b), generator=self.gen, device=deg.device)
+        u = torch.rand((n, 4, b), generator=self.gen, device=deg.device)
+        return RoundDraws(rejection.slot_offsets(u_kk, deg), u)
 
 
 def generate_walks(
@@ -155,8 +153,9 @@ def _trial_fn(graph: DeviceCSR, p, q, extend, alpha_np, use_cdf):
     def run(draws, prev, cur_rows, prev_rows, theta, wp, force_ok=None):
         if extend:
             return rejection._trial_block(
-                graph, draws, prev, cur_rows, prev_rows, p, q, True, alpha_np,
-                theta, wp, mode="auto", use_cdf=use_cdf, force_ok=force_ok,
+                graph, draws.trials(), prev, cur_rows, prev_rows, p, q, True,
+                alpha_np, theta, wp, mode="auto", use_cdf=use_cdf,
+                force_ok=force_ok,
             )
         return trialkernel.trial_block_fused(
             graph, draws, prev, cur_rows, prev_rows, p, q, alpha_np, theta,
@@ -178,8 +177,7 @@ def generate_walks_queued(
     round_cap_factor: int = 40,
     return_rounds: bool = False,
     undirected: Optional[bool] = None,
-    unroll: int = 4,
-    flush_every: int = 4,
+    block_rounds: int = 16,
 ):
     """Persistent-lane hub walker over a walk QUEUE (the hub default).
 
@@ -197,8 +195,9 @@ def generate_walks_queued(
     law is the exact second-order one. First-order steps (column 1 of
     each walk) are trials with ``force_ok`` and zero atom mass.
 
-    A block is ``unroll * flush_every`` rounds; the pending count is read
-    on the host once per block. Output row w always serves ``starts[w]``.
+    The pending count is read on the host once per block of
+    ``block_rounds`` rounds (the JAX engine's ``unroll * flush_every``).
+    Output row w always serves ``starts[w]``.
 
     Args:
         starts: [W] int32 start nodes (the walk queue; W >= 1).
@@ -248,7 +247,7 @@ def generate_walks_queued(
 
     n_batches = -(-w_total // b)
     round_cap = n_batches * walk_length * round_cap_factor + 64
-    block = max(int(unroll), 1) * max(int(flush_every), 1)
+    block = max(int(block_rounds), 1)
 
     t = 0
     pending = b
@@ -379,7 +378,7 @@ def generate_walks_amortized(
 
     start_rows = graph.gather_rows(start)
     alive0 = graph.rows_nbr(start_rows)[:, 0] != sentinel
-    d0 = draws(FIRST, graph.rows_degree(start_rows))[0]
+    d0 = draws(FIRST, graph.rows_degree(start_rows)).trials()[0]
     first, w_first = rejection.propose(
         graph, d0.u_small, start_rows, use_cdf, d0.kk, d0.u_self
     )

@@ -105,10 +105,12 @@ class _AmortizedOTFMixin:
     The queued engine (``engine.generate_walks_queued``) is the default;
     ``PECANPY_TPU_QUEUE_FACTOR=0`` takes the per-batch amortized engine.
     ``PECANPY_TPU_AMORTIZED_TRIALS`` (default 2) sets the trials per
-    round, ``PECANPY_TPU_UNROLL`` (default 4) the rounds per unroll
-    block. Graphs without hubs keep the scan engine. The JAX package's
-    per-step rejection sampler (``PECANPY_TPU_AMORTIZED=0``) is not
-    ported: on a hub graph that setting raises.
+    round, ``PECANPY_TPU_UNROLL`` (default 4) the rounds per host read
+    of the pending count: ``UNROLL`` in the amortized engine, ``4 *
+    UNROLL`` in the queued one (the JAX engine's ``unroll *
+    flush_every``). Graphs without hubs keep the scan engine. The JAX
+    package's per-step rejection sampler (``PECANPY_TPU_AMORTIZED=0``)
+    is not ported: on a hub graph that setting raises.
     """
 
     def _walk_queue_factor(self) -> int:
@@ -140,7 +142,7 @@ class _AmortizedOTFMixin:
             if queued:
                 return engine.generate_walks_queued(
                     dg, start, draws, walk_length, p, q, extend, lanes=lanes,
-                    unroll=unroll,
+                    block_rounds=4 * unroll,
                 )
             return engine.generate_walks_amortized(
                 dg, start, draws, walk_length, p, q, extend, unroll=unroll

@@ -17,7 +17,8 @@ rejection, with O(1) memory accesses per trial whatever the degree:
    accepts when the atom is on.
 
 Draws are arguments, so tests can feed the JAX key tree's own numbers:
-a ``TrialDraws`` holds one trial's per-lane draws. The JAX package draws
+a ``TrialDraws`` holds one trial's per-lane draws, a ``RoundDraws`` the
+draws of a round's T trials as the kernels read them. The JAX package draws
 ``kk`` with ``jax.random.randint``; the port's own generator draws it as
 ``min(floor(u * max(deg, 1)), max(deg, 1) - 1)`` from a uniform u
 (``slot_offsets``).
@@ -54,6 +55,29 @@ class TrialDraws(NamedTuple):
     u_small: torch.Tensor
     u_atom: torch.Tensor
     u_acc: torch.Tensor
+
+
+class RoundDraws(NamedTuple):
+    """One round's draws for T trials, in the layout the CUDA trial
+    kernels read.
+
+    kk: [T, B] int32 alias-slot offsets.
+    u: [T, 4, B] float32 uniforms u_self, u_small, u_atom, u_acc.
+    """
+
+    kk: torch.Tensor
+    u: torch.Tensor
+
+    def trials(self) -> List[TrialDraws]:
+        """Per-trial ``TrialDraws`` (views, no copies)."""
+        return [TrialDraws(kk, *u) for kk, u in zip(self.kk, self.u)]
+
+    @staticmethod
+    def stack(draws: List[TrialDraws]) -> "RoundDraws":
+        return RoundDraws(
+            torch.stack([d.kk for d in draws]),
+            torch.stack([torch.stack(d[1:]) for d in draws]),
+        )
 
 
 def slot_offsets(u: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:

@@ -14,24 +14,18 @@ tensors it runs the plain version, ``rejection._trial_block``; on CUDA
 tensors it launches both kernels or raises. Each kernel's wrapper counts
 its launches in ``.launches``. ``trial_propose_plain`` and
 ``trial_accept_plain`` are the plain versions of the two halves, for
-holding each kernel against its own function on the card.
+holding each kernel against its own function on the card. The draws
+come as one ``RoundDraws``, the [T, B] and [T, 4, B] blocks the kernels
+read as they are.
 """
-from typing import List
-
 import torch
 
 from pecanpy_tpu_torch.ops import _kernels, rejection
 from pecanpy_tpu_torch.ops.hubs import EP_WIDTH
 from pecanpy_tpu_torch.ops.layout import HB_WIDTH, DeviceCSR
-from pecanpy_tpu_torch.ops.rejection import TrialDraws
+from pecanpy_tpu_torch.ops.rejection import RoundDraws
 
 MAX_TRIALS = 8  # csrc/trial.cu:kMaxTrials
-
-
-def _stack_uniforms(draws: List[TrialDraws]) -> torch.Tensor:
-    """[T, 4, B] float32: u_self, u_small, u_atom, u_acc of each trial."""
-    u = torch.stack([v for d in draws for v in d[1:]])
-    return u.view(len(draws), 4, -1)
 
 
 def _check_cuda(dg: DeviceCSR, rows: torch.Tensor, trials: int, what: str):
@@ -58,9 +52,24 @@ def _lane_vector(t, b, dtype, device, name):
     return t.contiguous()
 
 
+def _draw_blocks(draws: RoundDraws, trials, b, device):
+    """The draws' [T, B] int32 kk and [T, 4, B] float32 u, checked."""
+    kk, u = draws.kk.contiguous(), draws.u.contiguous()
+    if (
+        tuple(kk.shape) != (trials, b) or kk.dtype != torch.int32
+        or tuple(u.shape) != (trials, 4, b) or u.dtype != torch.float32
+        or kk.device != device or u.device != device
+    ):
+        raise ValueError(
+            f"draws must be [{trials}, {b}] int32 kk and [{trials}, 4, {b}] "
+            f"float32 u on {device}"
+        )
+    return kk, u
+
+
 def trial_propose(
     dg: DeviceCSR,
-    draws: List[TrialDraws],
+    draws: RoundDraws,
     prev: torch.Tensor,
     cur_rows: torch.Tensor,
     theta=None,
@@ -68,7 +77,7 @@ def trial_propose(
     use_cdf: bool = False,
 ):
     """Launch ``trial_propose``: ([T, B] int32 x, [T, B] float32 w(cur, x))."""
-    b, trials = cur_rows.shape[0], len(draws)
+    b, trials = cur_rows.shape[0], draws.kk.shape[0]
     _check_cuda(dg, cur_rows, trials, "trial_propose")
     dev = cur_rows.device
     prev = _lane_vector(prev, b, torch.int32, dev, "prev")
@@ -77,13 +86,7 @@ def trial_propose(
     if theta is not None:
         theta = _lane_vector(theta, b, torch.float32, dev, "theta")
         wp = _lane_vector(wp, b, torch.float32, dev, "wp")
-    kk = torch.stack([d.kk for d in draws])
-    u = _stack_uniforms(draws)
-    if (
-        tuple(u.shape) != (trials, 4, b) or u.dtype != torch.float32
-        or kk.dtype != torch.int32 or u.device != dev or kk.device != dev
-    ):
-        raise ValueError("draws must be [B] tensors on the rows' device")
+    kk, u = _draw_blocks(draws, trials, b, dev)
     cdf_off = dg.channels.index("cdf") * dg.dpad if use_cdf else -1
     ep = dg.edge_pack.contiguous()
     x = torch.empty((trials, b), dtype=torch.int32, device=dev)
@@ -107,7 +110,7 @@ trial_propose.launches = 0
 
 def trial_accept(
     dg: DeviceCSR,
-    draws: List[TrialDraws],
+    draws: RoundDraws,
     x: torch.Tensor,
     wx: torch.Tensor,
     prev: torch.Tensor,
@@ -120,7 +123,7 @@ def trial_accept(
 ):
     """Launch ``trial_accept``: ([B] int32 chosen, [B] bool got,
     [B] float32 w(cur, chosen)) from ``trial_propose``'s (x, wx)."""
-    b, trials = prev_rows.shape[0], len(draws)
+    b, trials = prev_rows.shape[0], draws.kk.shape[0]
     _check_cuda(dg, prev_rows, trials, "trial_accept")
     dev = prev_rows.device
     prev = _lane_vector(prev, b, torch.int32, dev, "prev")
@@ -131,9 +134,7 @@ def trial_accept(
     x, wx = x.contiguous(), wx.contiguous()
     if force_ok is not None:
         force_ok = _lane_vector(force_ok, b, torch.bool, dev, "force_ok")
-    u = _stack_uniforms(draws)
-    if tuple(u.shape) != (trials, 4, b) or u.dtype != torch.float32 or u.device != dev:
-        raise ValueError("draws must be [B] float32 tensors on the rows' device")
+    _, u = _draw_blocks(draws, trials, b, dev)
     hb = dg.hbuckets.contiguous()
     chosen = torch.empty(b, dtype=torch.int32, device=dev)
     got = torch.empty(b, dtype=torch.bool, device=dev)
@@ -160,7 +161,7 @@ def trial_propose_plain(dg, draws, prev, cur_rows, theta=None, wp=None, use_cdf=
     """Plain torch version of ``trial_propose`` (same contract)."""
     out = [
         rejection._propose_trial(dg, d, prev, cur_rows, theta, wp, use_cdf)
-        for d in draws
+        for d in draws.trials()
     ]
     return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
 
@@ -174,14 +175,14 @@ def trial_accept_plain(
             dg, d, x[t], wx[t], prev, None, prev_rows, p, q, False, alpha_np,
             use_atom,
         )
-        for t, d in enumerate(draws)
+        for t, d in enumerate(draws.trials())
     ]
     return rejection._combine(list(x), oks, list(wx), force_ok)
 
 
 def trial_block_fused(
     dg: DeviceCSR,
-    draws: List[TrialDraws],
+    draws: RoundDraws,
     prev: torch.Tensor,
     cur_rows: torch.Tensor,
     prev_rows: torch.Tensor,
@@ -201,7 +202,7 @@ def trial_block_fused(
     """
     if cur_rows.device.type == "cpu":
         return rejection._trial_block(
-            dg, draws, prev, cur_rows, prev_rows, p, q, False, alpha_np,
+            dg, draws.trials(), prev, cur_rows, prev_rows, p, q, False, alpha_np,
             theta, wp, mode="auto", use_cdf=use_cdf, force_ok=force_ok,
         )
     x, wx = trial_propose(dg, draws, prev, cur_rows, theta, wp, use_cdf)

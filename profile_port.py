@@ -40,19 +40,14 @@ def log(msg):
     print(msg, flush=True)
 
 
-def _self_device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
-
-
 def profiled(fn, label, out):
     """Run ``fn`` once on the host clock and once under the profiler;
     returns (host seconds, device-busy seconds or None)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import self_device_us
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -67,17 +62,17 @@ def profiled(fn, label, out):
     # an op's device time shows twice: on its aten op (host side) and on
     # the kernels it launched (device side); busy time sums the kernels
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy_us = sum(_self_device_us(e) for e in kernels)
+    busy_us = sum(self_device_us(e) for e in kernels)
     table = events.table(sort_by="self_cuda_time_total", row_limit=TOP_OPS)
     out.write(f"== {label}\n{table}\n")
     ops = [e for e in events if e.device_type != DeviceType.CUDA]
-    for e in sorted(ops, key=_self_device_us, reverse=True)[:8]:
-        log(f"    {e.key[:40]:40s} {_self_device_us(e) / 1e3:9.3f} ms device, "
+    for e in sorted(ops, key=self_device_us, reverse=True)[:8]:
+        log(f"    {e.key[:40]:40s} {self_device_us(e) / 1e3:9.3f} ms device, "
             f"{e.count} calls")
     for e in kernels:  # the port's own kernels have no aten op
         for tag in ("apply_sorted_kernel", "trial_propose_kernel", "trial_accept_kernel"):
             if tag in e.key:
-                log(f"    {'csrc: ' + tag:40s} {_self_device_us(e) / 1e3:9.3f} ms device, "
+                log(f"    {'csrc: ' + tag:40s} {self_device_us(e) / 1e3:9.3f} ms device, "
                     f"{e.count} calls")
     return host_s, (busy_us / 1e6 if busy_us > 0 else None)
 

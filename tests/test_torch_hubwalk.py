@@ -21,7 +21,7 @@ from pecanpy_tpu_torch import cli, pecanpy
 from pecanpy_tpu_torch.models import engine
 from pecanpy_tpu_torch.ops import trialkernel
 from pecanpy_tpu_torch.ops.layout import device_csr_from_dense
-from pecanpy_tpu_torch.ops.rejection import TrialDraws
+from pecanpy_tpu_torch.ops.rejection import RoundDraws, TrialDraws
 from test_downstream import micro_f1_nearest_centroid, sbm_graph
 from test_torch_hubs import _t, int_hub_graph, jax_propose_draws, jax_trial_draws, pair
 
@@ -32,7 +32,9 @@ def jax_queued_draws(key, trials=2):
     """The queued JAX engine's draws: round t uses ``fold_in(key, t)``."""
 
     def draws(t, deg):
-        return jax_trial_draws(jax.random.fold_in(key, t), trials, deg.numpy())
+        return RoundDraws.stack(
+            jax_trial_draws(jax.random.fold_in(key, t), trials, deg.numpy())
+        )
 
     return draws
 
@@ -46,8 +48,12 @@ def jax_amortized_draws(key, trials=2):
         if t == engine.FIRST:
             kk, u_self, u_small = jax_propose_draws(key_first, jnp.asarray(deg.numpy()))
             zero = torch.zeros(deg.shape[0])
-            return [TrialDraws(_t(kk), _t(u_self), _t(u_small), zero, zero)]
-        return jax_trial_draws(jax.random.fold_in(key_rounds, t), trials, deg.numpy())
+            return RoundDraws.stack(
+                [TrialDraws(_t(kk), _t(u_self), _t(u_small), zero, zero)]
+            )
+        return RoundDraws.stack(
+            jax_trial_draws(jax.random.fold_in(key_rounds, t), trials, deg.numpy())
+        )
 
     return draws
 
@@ -71,13 +77,14 @@ def test_walks_bitwise_with_jax_draws(rng, queued, directed, p, q, use_cdf):
     # blocks of 2 rounds: the JAX engines compile their unrolled block,
     # which at the default 16 (queued) rounds takes half a minute here
     if queued:
-        kw = dict(lanes=24, unroll=1, flush_every=2, return_rounds=True)
+        kw = dict(lanes=24, return_rounds=True)
         want = jengine.generate_walks_queued(
-            ref, jnp.asarray(start), key, walk_length, p, q, False, **kw
+            ref, jnp.asarray(start), key, walk_length, p, q, False,
+            unroll=1, flush_every=2, **kw,
         )
         got = engine.generate_walks_queued(
             port, torch.from_numpy(start), jax_queued_draws(key), walk_length,
-            p, q, False, **kw,
+            p, q, False, block_rounds=2, **kw,
         )
     else:
         kw = dict(unroll=2, return_rounds=True)

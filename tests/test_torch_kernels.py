@@ -266,7 +266,7 @@ def test_trial_kernels_match_plain(cuda, trials, p, q, use_cdf):
         assert trialkernel.trial_propose.launches == n_p + 1
         assert trialkernel.trial_accept.launches == n_a + 1
         want = rejection._trial_block(
-            dg, draws, prev, cur_rows, prev_rows, p, q, False, alpha_np, theta, wp,
+            dg, draws.trials(), prev, cur_rows, prev_rows, p, q, False, alpha_np, theta, wp,
             use_cdf=use_cdf, force_ok=force)
         _assert_bitwise(got, want)
     # each half against its own plain version
@@ -293,7 +293,7 @@ def test_trial_kernels_no_hub_lanes(cuda):
         dg, draws, prev, cur_rows, prev_rows, 0.5, 2.0, alpha_np, theta, wp)
     torch.cuda.synchronize()
     want = rejection._trial_block(
-        dg, draws, prev, cur_rows, prev_rows, 0.5, 2.0, False, alpha_np, theta, wp)
+        dg, draws.trials(), prev, cur_rows, prev_rows, 0.5, 2.0, False, alpha_np, theta, wp)
     _assert_bitwise(got, want)
 
 
@@ -308,7 +308,7 @@ def test_trial_kernels_float_weights_with_cdf(cuda):
     got = trialkernel.trial_block_fused(
         dg, draws, prev, cur_rows, prev_rows, 0.5, 2.0, alpha_np, theta, wp, use_cdf=True)
     want = rejection._trial_block(
-        dg, draws, prev, cur_rows, prev_rows, 0.5, 2.0, False, alpha_np, theta, wp,
+        dg, draws.trials(), prev, cur_rows, prev_rows, 0.5, 2.0, False, alpha_np, theta, wp,
         use_cdf=True)
     _assert_bitwise(got, want)
 
@@ -356,17 +356,18 @@ def test_trial_kernels_at_draw_boundaries(cuda):
     assert theta is None
     is_hub = dg.rows_is_hub(cur_rows)
     on_cdf = torch.where(is_hub, 0.5, dg.rows_cdf(cur_rows)[:, 1])
-    d = draws[0]._replace(u_small=on_cdf.contiguous())
-    x_p, wx_p = trialkernel.trial_propose_plain(dg, [d], prev, cur_rows, use_cdf=True)
-    x, wx = trialkernel.trial_propose(dg, [d], prev, cur_rows, use_cdf=True)
+    d = draws.trials()[0]._replace(u_small=on_cdf)
+    one = rejection.RoundDraws.stack([d])
+    x_p, wx_p = trialkernel.trial_propose_plain(dg, one, prev, cur_rows, use_cdf=True)
+    x, wx = trialkernel.trial_propose(dg, one, prev, cur_rows, use_cdf=True)
     _assert_bitwise((x, wx), (x_p, wx_p))
     alpha = rejection._bias(dg, x[0], wx[0], prev, None, prev_rows, p, q, False)
     accept = alpha / torch.full_like(alpha, alpha_np)
     assert bool((accept != alpha * (1.0 / alpha_np)).any())
     below = torch.arange(accept.numel(), device=cuda) % 2 == 1
     u_acc = torch.where(below, torch.nextafter(accept, torch.zeros_like(accept)), accept)
-    d = d._replace(u_acc=u_acc.contiguous())
-    got = trialkernel.trial_accept(dg, [d], x, wx, prev, prev_rows, p, q, alpha_np, False)
-    want = trialkernel.trial_accept_plain(dg, [d], x, wx, prev, prev_rows, p, q, alpha_np, False)
+    one = rejection.RoundDraws.stack([d._replace(u_acc=u_acc)])
+    got = trialkernel.trial_accept(dg, one, x, wx, prev, prev_rows, p, q, alpha_np, False)
+    want = trialkernel.trial_accept_plain(dg, one, x, wx, prev, prev_rows, p, q, alpha_np, False)
     _assert_bitwise(got, want)
     assert torch.equal(got[1], below)

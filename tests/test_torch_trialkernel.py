@@ -17,6 +17,7 @@ import torch
 
 from pecanpy_tpu.ops import trialkernel as jtrialkernel
 from pecanpy_tpu_torch.ops import rejection, trialkernel
+from pecanpy_tpu_torch.ops.rejection import RoundDraws
 from test_torch_hubs import _bits, _t, atom_state, edge_lanes, int_hub_graph, jax_trial_draws, pair
 
 
@@ -46,7 +47,7 @@ def test_fused_block_equals_jax_pallas(rng, trials, use_atom, use_cdf):
         theta, wp, use_cdf=use_cdf, interpret=True,
     )
     got = trialkernel.trial_block_fused(
-        port, jax_trial_draws(key, trials, ref.rows_degree(rows[0])),
+        port, RoundDraws.stack(jax_trial_draws(key, trials, ref.rows_degree(rows[0]))),
         torch.from_numpy(prev), rows_p[0], rows_p[1], p, q, alpha_np,
         None if theta is None else _t(theta), None if wp is None else _t(wp),
         use_cdf=use_cdf,
@@ -60,7 +61,9 @@ def test_plain_halves_compose_to_the_block(rng, use_cdf):
     port, ref, prev, rows, rows_p = _lanes(rng, use_cdf, b=128)
     p, q = 0.5, 2.0
     theta, wp = (_t(a) for a in atom_state(ref, jnp.asarray(prev), rows[0], p, q))
-    draws = jax_trial_draws(jax.random.PRNGKey(4), 3, ref.rows_degree(rows[0]))
+    draws = RoundDraws.stack(
+        jax_trial_draws(jax.random.PRNGKey(4), 3, ref.rows_degree(rows[0]))
+    )
     prev_t = torch.from_numpy(prev)
     force_ok = torch.from_numpy(rng.random(prev.size) < 0.25)
     x, wx = trialkernel.trial_propose_plain(port, draws, prev_t, rows_p[0], theta, wp, use_cdf)
@@ -69,7 +72,7 @@ def test_plain_halves_compose_to_the_block(rng, use_cdf):
         port, draws, x, wx, prev_t, rows_p[1], p, q, 1.0, True, force_ok
     )
     want = rejection._trial_block(
-        port, draws, prev_t, rows_p[0], rows_p[1], p, q, False, 1.0, theta, wp,
+        port, draws.trials(), prev_t, rows_p[0], rows_p[1], p, q, False, 1.0, theta, wp,
         use_cdf=use_cdf, force_ok=force_ok,
     )
     for a, b in zip(got, want):
