@@ -34,7 +34,25 @@ Phases (any failure raises, and the script exits non-zero):
    e. the second-order law on the card, both engines, undirected and
       directed: empirical transition frequencies against the exact law;
    f. ``embed(dim=128, num_walks=1, walk_length=80, max_steps=50)``;
-7. prints the kernels JSON line, the ``nvidia-smi`` line, and last
+7. the remaining modes and the windowed applier:
+   a. the windowed kernel (``ops/apply.py:apply_sorted_stream_windowed``)
+      bit-equal to the applier of phase 3 and within its tolerances of its
+      plain version, on phase 3's streams and one with a hot row of
+      ``HOT_ROW`` entries, f32 and bf16, with times;
+   b. ``PreComp(p=0.5, q=2)`` on phase 4's graph: the per-edge CDF build,
+      ``simulate_walks_device(1, 80)`` (every sampled step an edge), and
+      ``embed(max_steps=50)`` with ``PECANPY_TPU_APPLY_V2`` on: 2 windowed
+      launches per step, none of phase 3's kernel;
+   c. PreComp's second-order law on a 40-node graph, its table rows and
+      its on-the-fly fallback for nodes wider than the table;
+   d. ``FirstOrderUnweighted`` and ``PreCompFirstOrder`` on phase 6's
+      power-law graph (hub-aware draws; walks leave their hub starts), and
+      their first-order laws on a small hub graph;
+   e. ``Node2vecPlusPlus`` on a dense 2,000-node graph; the CLI's
+      ``tocsr`` task, PreComp from the ``.csr.npz`` with the windowed
+      applier (two runs byte-identical), and ``--task walks``;
+   f. the block-model gate through PreComp with the windowed applier;
+8. prints the kernels JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
@@ -66,6 +84,8 @@ NO_CDF_MISMATCH_SHARE = 1e-3  # of lanes
 LAW_SIGMAS = 5.0  # per-frequency tolerance of the second-order law check
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 SECTOR = 32  # bytes: the least the memory system moves for one gather
+HOT_ROW = 5_000  # entries of one id in phase 7a's hot-row stream
+PRECOMP_LAW_WIDTH = 8  # PreComp table width on phase 7c's 40-node law graph
 
 
 def log(msg):
@@ -163,15 +183,20 @@ def device_ms(fn, reps=TIMING_REPS):
 
     fn()  # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(self_device_us(e) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / 1e3 / reps
+    # a profiler session now and then records no device activity at all
+    # (seen on the card, in the third of four sessions of one run); it is run
+    # again, and three empty ones in a row fail
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(self_device_us(e) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+        log(f"[profiler] session {attempt + 1} recorded no device time; running it again")
+    raise RuntimeError("torch.profiler recorded no device time in three sessions")
 
 
 def bf16_ulps(a, b):
@@ -229,6 +254,38 @@ def make_stream(r, n, d, seed):
     return ids_s, upd_s
 
 
+def compare_with_plain(label, t_k, t_p, table0, ids_s):
+    """Hold an applier kernel's table against its plain version's: rows no
+    id names bit-equal, touched rows moved and within the tolerance (f32
+    allclose rtol=1e-5 atol=1e-6; bf16 at most ``BF16_MISMATCH_SHARE`` of
+    touched elements differ, each by 1 ulp). Returns (max_abs_err, the
+    check as text, the touched-row mask)."""
+    import torch
+
+    touched = torch.zeros(t_k.shape[0], dtype=torch.bool, device=t_k.device)
+    touched[ids_s.long()] = True
+    if not torch.equal(t_k[~touched], table0[~touched]):
+        raise AssertionError(f"{label}: untouched rows changed")
+    err = float((t_k.float() - t_p.float()).abs().max())
+    if t_k.dtype == torch.float32:
+        torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-6)
+        check = "allclose rtol=1e-5 atol=1e-6"
+    else:
+        # kernel and plain share the rounding bits: they may differ only
+        # where the two f32 sums straddle a rounding boundary
+        ulps = bf16_ulps(t_k[touched], t_p[touched])
+        n_diff, max_ulps = int((ulps > 0).sum()), int(ulps.max())
+        if max_ulps > 1 or n_diff > BF16_MISMATCH_SHARE * ulps.numel():
+            raise AssertionError(
+                f"{label}: {n_diff} of {ulps.numel()} touched elements differ from "
+                f"plain, up to {max_ulps} ulps (allowed: {BF16_MISMATCH_SHARE:g} of "
+                "them, 1 ulp)")
+        check = f"{n_diff} of {ulps.numel()} touched elements differ, max {max_ulps} bf16 ulp"
+    if not bool(torch.ne(t_k[touched], table0[touched]).any()):
+        raise AssertionError(f"{label}: no touched row moved")
+    return err, check, touched
+
+
 def phase_kernel_vs_plain():
     import torch
 
@@ -248,28 +305,7 @@ def phase_kernel_vs_plain():
             t_k = apply_lib.apply_sorted_stream(table0.clone(), ids_s, upd_s, seed)
             t_p = apply_lib.apply_sorted_stream_plain(table0.clone(), ids_s, upd_s, seed)
             torch.cuda.synchronize()
-            touched = torch.zeros(n, dtype=torch.bool, device="cuda")
-            touched[ids_s.long()] = True
-            if not torch.equal(t_k[~touched], table0[~touched]):
-                raise AssertionError(f"{dtype} R={r}: untouched rows changed")
-            err = float((t_k.float() - t_p.float()).abs().max())
-            if dtype == torch.float32:
-                torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-6)
-                check = "allclose rtol=1e-5 atol=1e-6"
-            else:
-                # kernel and plain share the rounding bits: they may differ
-                # only where the two f32 sums straddle a rounding boundary
-                ulps = bf16_ulps(t_k[touched], t_p[touched])
-                n_diff, max_ulps = int((ulps > 0).sum()), int(ulps.max())
-                if max_ulps > 1 or n_diff > BF16_MISMATCH_SHARE * ulps.numel():
-                    raise AssertionError(
-                        f"bf16 R={r}: {n_diff} of {ulps.numel()} touched elements "
-                        f"differ from plain, up to {max_ulps} ulps (allowed: "
-                        f"{BF16_MISMATCH_SHARE:g} of them, 1 ulp)")
-                check = (f"{n_diff} of {ulps.numel()} touched elements differ, "
-                         f"max {max_ulps} bf16 ulp")
-            if not bool(torch.ne(t_k[touched], table0[touched]).any()):
-                raise AssertionError(f"{dtype} R={r}: no touched row moved")
+            err, check, touched = compare_with_plain(f"{dtype} R={r}", t_k, t_p, table0, ids_s)
             table = table0.clone()
             ms = cuda_median_ms(
                 lambda: apply_lib.apply_sorted_stream(table, ids_s, upd_s, seed))
@@ -462,6 +498,44 @@ def node2vec_probs(adj, cur, prev, p, q):
     w[prev] /= p
     w = w[nbr_mask]
     return w / w.sum()
+
+
+def second_order_worst(walks, adj, p, q, min_count=400):
+    """Empirical (prev, cur) -> next frequencies of ``walks`` against the
+    exact node2vec law: (pairs checked, worst deviation in binomial sigma)."""
+    n = adj.shape[0]
+    trip = np.concatenate([walks[:, j : j + 3] for j in range(walks.shape[1] - 2)])
+    key = (trip[:, 0] * n + trip[:, 1]) * n + trip[:, 2]
+    counts = np.bincount(key, minlength=n ** 3).reshape(n, n, n)
+    checked, worst = 0, 0.0
+    for pv in range(n):
+        for cu in np.nonzero(adj[pv])[0]:
+            tot = counts[pv, cu].sum()
+            if tot < min_count:
+                continue
+            freq = counts[pv, cu][np.nonzero(adj[cu])[0]] / tot
+            dev = np.abs(freq - node2vec_probs(adj, cu, pv, p, q)).max()
+            worst = max(worst, dev / np.sqrt(0.25 / tot))
+            checked += 1
+    return checked, worst
+
+
+def first_order_worst(walks, eff, adj, probs, min_count=400):
+    """Empirical cur -> next frequencies against ``probs(cur)`` over cur's
+    neighbors: (nodes checked, worst deviation in binomial sigma)."""
+    n = adj.shape[0]
+    valid = np.arange(walks.shape[1] - 1)[None, :] < (eff[:, None] - 1)
+    key = walks[:, :-1][valid].astype(np.int64) * n + walks[:, 1:][valid]
+    counts = np.bincount(key, minlength=n * n).reshape(n, n)
+    checked, worst = 0, 0.0
+    for cu in range(n):
+        tot = counts[cu].sum()
+        if tot < min_count:
+            continue
+        freq = counts[cu][np.nonzero(adj[cu])[0]] / tot
+        worst = max(worst, np.abs(freq - probs(cu)).max() / np.sqrt(0.25 / tot))
+        checked += 1
+    return checked, worst
 
 
 def search_sectors(deg):
@@ -731,19 +805,7 @@ def phase_hub_path(tmp):
             w_l, e_l = w_l.cpu().numpy(), e_l.cpu().numpy()
             if (e_l != 7).any():
                 raise AssertionError("every law-graph node has out-edges")
-            trip = np.concatenate([w_l[:, j : j + 3] for j in range(w_l.shape[1] - 2)])
-            key = (trip[:, 0] * n + trip[:, 1]) * n + trip[:, 2]
-            counts = np.bincount(key, minlength=n ** 3).reshape(n, n, n)
-            checked, worst = 0, 0.0
-            for pv in range(n):
-                for cu in np.nonzero(adj[pv])[0]:
-                    tot = counts[pv, cu].sum()
-                    if tot < 400:
-                        continue
-                    freq = counts[pv, cu][np.nonzero(adj[cu])[0]] / tot
-                    dev = np.abs(freq - node2vec_probs(adj, cu, pv, p, q)).max()
-                    worst = max(worst, dev / np.sqrt(0.25 / tot))
-                    checked += 1
+            checked, worst = second_order_worst(w_l, adj, p, q)
             if checked < 50 or worst > LAW_SIGMAS:
                 raise AssertionError(f"law, {name}, directed {directed}: {checked} "
                                      f"(prev, cur) pairs, worst {worst:.2f} sigma")
@@ -781,6 +843,317 @@ def phase_hub_path(tmp):
     return results, launches
 
 
+def make_hot_stream(r, n, d, seed):
+    """Random sorted ids with one row repeated ``HOT_ROW`` times: a segment
+    that spans many windows of the windowed kernel."""
+    import torch
+
+    gen = np.random.default_rng(seed)
+    ids = np.concatenate([gen.integers(0, n, r - HOT_ROW), np.full(HOT_ROW, n // 3 + 1)])
+    ids_s = torch.from_numpy(np.sort(ids).astype(np.int32)).cuda()
+    return ids_s, (torch.randn(r, d, device="cuda") * 1e-3).contiguous()
+
+
+def phase_windowed():
+    """7a: the windowed kernel against kernel 2.1 (bit for bit) and its
+    plain version, on phase 3's streams and a hot-row stream, and times."""
+    import torch
+
+    from pecanpy_tpu_torch.ops import apply as apply_lib
+
+    n, d = NODES, DIM
+    r_in = 1235 * (WALK_LENGTH + 1)
+    r_out = r_in + NEG_POOL
+    base = (torch.rand(n, d, device="cuda") - 0.5) / d
+    streams = {"R=%d" % r: make_stream(r, n, d, seed=r) for r in (r_in, r_out)}
+    streams["hot"] = make_hot_stream(r_in, n, d, seed=7)
+    results, max_err = {}, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        table0 = base.to(dtype)
+        name = str(dtype).replace("torch.", "")
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        for label, (ids_s, upd_s) in streams.items():
+            seed = 777
+            t_w = apply_lib.apply_sorted_stream_windowed(table0.clone(), ids_s, upd_s, seed)
+            t_21 = apply_lib.apply_sorted_stream(table0.clone(), ids_s, upd_s, seed)
+            t_p = apply_lib.apply_sorted_stream_windowed_plain(table0.clone(), ids_s, upd_s, seed)
+            torch.cuda.synchronize()
+            if not torch.equal(t_w.view(bits), t_21.view(bits)):
+                n_diff = int((t_w.view(bits) != t_21.view(bits)).sum())
+                raise AssertionError(f"windowed {name} {label}: {n_diff} elements differ "
+                                     "from kernel 2.1")
+            err, check, touched = compare_with_plain(f"windowed {name} {label}", t_w, t_p,
+                                                     table0, ids_s)
+            max_err = max(max_err, err)
+            if label == "hot":
+                log(f"[7a windowed] {name} hot row ({HOT_ROW} entries, R={ids_s.numel()}): "
+                    f"bit-equal to kernel 2.1; max_abs_err vs plain {err:.3e} ({check})")
+                continue
+            table = table0.clone()
+            ms = cuda_median_ms(
+                lambda: apply_lib.apply_sorted_stream_windowed(table, ids_s, upd_s, seed))
+            plain_ms = cuda_median_ms(
+                lambda: apply_lib.apply_sorted_stream_windowed_plain(table, ids_s, upd_s, seed))
+            ids_l, upd_l = ids_s.long(), upd_s.to(dtype)
+            library_ms = cuda_median_ms(lambda: table.index_add_(0, ids_l, upd_l, alpha=-1))
+            n_touched = int(touched.sum())
+            nbytes = ids_s.numel() * 4 + upd_s.numel() * 4 + 2 * n_touched * d * table.element_size()
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            log(f"[7a windowed] {name} {label}: bit-equal to kernel 2.1; max_abs_err vs "
+                f"plain {err:.3e} ({check}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"index_add_ {library_ms:.4f} ms; {n_touched} touched rows, "
+                f"{nbytes / 1e6:.2f} MB moved at least: bound {bound_ms:.4f} ms")
+            results[(name, ids_s.numel())] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                                  bound_ms=bound_ms)
+            del table, ids_l, upd_l
+        del t_w, t_21, t_p, table0
+    del base, streams
+    torch.cuda.empty_cache()
+    return results, max_err
+
+
+def phase_precomp(tmp):
+    """7b, 7c: PreComp on the 1M-node bench graph with the windowed applier,
+    and its second-order law on a small graph."""
+    import torch
+
+    from pecanpy_tpu_torch import pecanpy
+    from pecanpy_tpu_torch.ops import apply as apply_lib
+
+    raw = np.load(os.path.join(tmp, "bench_graph.csr.npz"))
+    indptr, indices = raw["indptr"], raw["indices"]
+    g = pecanpy.PreComp(p=0.5, q=2.0, random_state=0, device="cuda")
+    g.read_npz(os.path.join(tmp, "bench_graph.csr.npz"), weighted=True, implicit_ids=True)
+    t0 = time.perf_counter()
+    g.preprocess_transition_probs()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    e, w = g.edge_cdf.shape
+    if e != indices.size or e * w >= 2**31:
+        raise AssertionError(f"edge_cdf {tuple(g.edge_cdf.shape)} for {indices.size} edges")
+    dg = g.get_device_graph()
+    log(f"[7b precomp] layout + edge-CDF build in {dt:.2f} s: edge_cdf [{e}, {w}] f32 "
+        f"({e * w * 4 / 1e9:.2f} GB, E*w = {e * w:.3e} < 2^31); fused {tuple(dg.fused.shape)} "
+        f"channels {dg.channels}")
+    g.simulate_walks_device(1, 8)  # warm-up at a short length
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    walks, eff = g.simulate_walks_device(1, WALK_LENGTH)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    walks_np, eff_np = walks.cpu().numpy(), eff.cpu().numpy()
+    steps = int((eff_np - 1).sum())
+    n_checked = check_walks_follow_edges(walks_np, eff_np, indptr, indices, NODES)
+    log(f"[7b precomp] walks {tuple(walks.shape)} in {dt:.3f} s: {steps / dt:.4e} effective "
+        f"walk steps/s; all {n_checked} sampled steps are edges")
+    del walks, eff
+
+    v2 = apply_lib.APPLY_V2
+    apply_lib.APPLY_V2 = True
+    try:
+        apply_lib.apply_sorted_stream.launches = 0
+        apply_lib.apply_sorted_stream_windowed.launches = 0
+        t0 = time.perf_counter()
+        emb = g.embed(dim=DIM, num_walks=1, walk_length=WALK_LENGTH,
+                      window_size=WINDOW, max_steps=MAX_STEPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = apply_lib.apply_sorted_stream_windowed.launches
+        old = apply_lib.apply_sorted_stream.launches
+    finally:
+        apply_lib.APPLY_V2 = v2
+    log(f"[7b precomp] embed with PECANPY_TPU_APPLY_V2: windowed launches {launches}, "
+        f"kernel 2.1 launches {old}, in {MAX_STEPS} chunk-steps ({dt:.2f} s incl. walks)")
+    if launches != 2 * MAX_STEPS or old != 0:
+        raise AssertionError(f"windowed {launches} (want {2 * MAX_STEPS}), 2.1 {old} (want 0)")
+    if emb.shape != (NODES, DIM) or not np.isfinite(emb).all():
+        raise AssertionError(f"embeddings {emb.shape}, finite {np.isfinite(emb).all()}")
+    del g, dg, emb
+    torch.cuda.empty_cache()
+
+    # -- c. the second-order law: table rows and the wide-degree fallback --
+    law_rng = np.random.default_rng(4)
+    n = 40
+    adj = (law_rng.random((n, n)) < 0.25) * law_rng.uniform(0.2, 3.0, (n, n))
+    np.fill_diagonal(adj, 0.0)
+    adj = np.triu(adj) + np.triu(adj, 1).T
+    for i in np.nonzero(adj.sum(1) == 0)[0]:
+        adj[i, (i + 1) % n] = adj[(i + 1) % n, i] = 1.5
+    deg = (adj != 0).sum(1)
+    # a 40-node graph has no degree above 64: a narrower table row sends
+    # the nodes above it through the on-the-fly fallback
+    small = pecanpy.PreComp.from_mat(adj, [str(i) for i in range(n)], p=0.5, q=2.0,
+                                     random_state=1, device="cuda")
+    small.PRECOMP_WIDTH = PRECOMP_LAW_WIDTH
+    small.preprocess_transition_probs()
+    wide = int((deg > small.edge_cdf.shape[1]).sum())
+    if not 0 < wide < n:
+        raise AssertionError(f"law graph: {wide} of {n} nodes above the table width")
+    w_l, e_l = small.simulate_walks_device(2000, 6)
+    w_l, e_l = w_l.cpu().numpy(), e_l.cpu().numpy()
+    if (e_l != 7).any():
+        raise AssertionError("every law-graph node has out-edges")
+    checked, worst = second_order_worst(w_l, adj, 0.5, 2.0)
+    if checked < 50 or worst > LAW_SIGMAS:
+        raise AssertionError(f"PreComp law: {checked} pairs, worst {worst:.2f} sigma")
+    log(f"[7c law] PreComp, table width {small.edge_cdf.shape[1]}, {wide} of {n} nodes "
+        f"through the fallback: {checked} (prev, cur) pairs, worst frequency {worst:.2f} "
+        f"binomial sigma (limit {LAW_SIGMAS})")
+    return launches
+
+
+def small_hub_graph(rng, n=60, cap=6):
+    """An undirected float-weight graph whose nodes 0 and 1 are hubs above
+    ``cap``; every node has an edge."""
+    adj = (rng.random((n, n)) < 4.0 / n) * rng.uniform(0.5, 2.0, (n, n))
+    for hub in (0, 1):
+        nbrs = rng.choice(np.arange(2, n), 20, replace=False)
+        adj[hub, nbrs] = rng.uniform(0.5, 2.0, 20)
+    np.fill_diagonal(adj, 0.0)
+    adj = np.maximum(adj, adj.T)
+    for i in np.nonzero(adj.sum(1) == 0)[0]:
+        adj[i, (i + 1) % n] = adj[(i + 1) % n, i] = 1.0
+    return adj
+
+
+def phase_first_order(tmp):
+    """7d: FirstOrderUnweighted and PreCompFirstOrder on the power-law graph
+    through the scan engine's hub-aware draws, and their laws."""
+    import torch
+
+    from pecanpy_tpu_torch import pecanpy
+    from pecanpy_tpu_torch.ops.layout import DEFAULT_DEGREE_CAP
+
+    path = os.path.join(tmp, "powerlaw_graph.csr.npz")
+    raw = np.load(path)
+    indptr, indices = raw["indptr"], raw["indices"]
+    deg = np.diff(indptr)
+    for cls, weighted in ((pecanpy.FirstOrderUnweighted, False),
+                          (pecanpy.PreCompFirstOrder, True)):
+        name = cls.__name__
+        g = cls(random_state=0, walker_batch=131_072, device="cuda")
+        g.read_npz(path, weighted=weighted, implicit_ids=True)
+        t0 = time.perf_counter()
+        g.preprocess_transition_probs()
+        torch.cuda.synchronize()
+        dt_layout = time.perf_counter() - t0
+        dg = g.get_device_graph()
+        if not dg.has_hubs or ("cdf" in dg.channels) != weighted:
+            raise AssertionError(f"{name}: has_hubs {dg.has_hubs}, channels {dg.channels}")
+        t0 = time.perf_counter()
+        walks, eff = g.simulate_walks_device(1, WALK_LENGTH)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        walks_np, eff_np = walks.cpu().numpy(), eff.cpu().numpy()
+        steps = int((eff_np - 1).sum())
+        n_checked = check_walks_follow_edges(walks_np, eff_np, indptr, indices, NODES)
+        hub_rows = np.nonzero(deg[walks_np[:, 0]] > DEFAULT_DEGREE_CAP)[0]
+        if (walks_np[hub_rows, 1] == walks_np[hub_rows, 0]).any():
+            raise AssertionError(f"{name}: a walk stayed on its hub start")
+        n_hub = check_walks_follow_edges(walks_np[hub_rows], eff_np[hub_rows], indptr, indices,
+                                         NODES, min(10_000, hub_rows.size))
+        log(f"[7d first-order] {name}: layout {dt_layout:.2f} s, channels {dg.channels}; "
+            f"walks {tuple(walks.shape)} on {g._resolved_walker_batch()} walkers per chunk in "
+            f"{dt:.3f} s: {steps / dt:.4e} effective steps/s; all {n_checked} sampled steps "
+            f"are edges; {hub_rows.size} walks start on hubs, all leave them ({n_hub} steps "
+            "checked)")
+        del g, dg, walks, eff
+        torch.cuda.empty_cache()
+
+    adj = small_hub_graph(np.random.default_rng(5))
+    unweighted = (adj != 0).astype(float)
+    ids = [str(i) for i in range(adj.shape[0])]
+    for cls, a in ((pecanpy.FirstOrderUnweighted, unweighted), (pecanpy.PreCompFirstOrder, adj)):
+        g = cls.from_mat(a, ids, degree_cap=6, random_state=2, device="cuda")
+        if not g.get_device_graph().has_hubs:
+            raise AssertionError("small hub graph without hubs")
+        walks, eff = g.simulate_walks_device(2000, 4)
+        checked, worst = first_order_worst(walks.cpu().numpy(), eff.cpu().numpy(), a,
+                                           lambda cu, a=a: a[cu][a[cu] != 0] / a[cu].sum())
+        if checked < 40 or worst > LAW_SIGMAS:
+            raise AssertionError(f"{cls.__name__} law: {checked} nodes, worst {worst:.2f}")
+        log(f"[7d law] {cls.__name__} (degree_cap 6, 2 hubs): {checked} nodes, worst "
+            f"frequency {worst:.2f} binomial sigma (limit {LAW_SIGMAS})")
+
+
+def run_cli(*args, env=None):
+    subprocess.run([sys.executable, "-m", "pecanpy_tpu_torch.cli", *args],
+                   cwd=REPO, check=True, timeout=600, env=env)
+
+
+def phase_n2vpp_and_cli(tmp):
+    """7e: Node2vecPlusPlus on a dense graph; the CLI's conversion and walk
+    tasks, and PreComp with the windowed applier through the CLI."""
+    from pecanpy_tpu_torch.experimental import Node2vecPlusPlus
+
+    n = 2000
+    indptr, indices, data = build_bench_graph(n, MEAN_DEGREE, seed=1)
+    adj = np.zeros((n, n))
+    adj[np.repeat(np.arange(n), np.diff(indptr)), indices] = data
+    g = Node2vecPlusPlus.from_mat(adj, [str(i) for i in range(n)], p=0.5, q=2.0,
+                                  random_state=0, device="cuda")
+    walks, eff = g.simulate_walks_device(2, WALK_LENGTH)
+    n_checked = check_walks_follow_edges(walks.cpu().numpy(), eff.cpu().numpy(), indptr,
+                                         indices, n, 2000)
+    log(f"[7e n2v++] dense {n}-node graph, walks {tuple(walks.shape)}: all {n_checked} "
+        "sampled steps are edges")
+
+    karate = os.path.join(REPO, "demo", "karate.edg")
+    csr = os.path.join(tmp, "karate.csr.npz")
+    run_cli("--task", "tocsr", "--input", karate, "--output", csr)
+    env = dict(os.environ, PECANPY_TPU_APPLY_V2="1")
+    outs = []
+    for i in range(2):
+        out = os.path.join(tmp, f"kp{i}.emb")
+        run_cli("--input", csr, "--output", out, "--mode", "PreComp", "--dimensions", "16",
+                "--walk-length", "10", "--num-walks", "3", "--window-size", "4", "--p", "0.5",
+                "--q", "2", "--random_state", "0", env=env)
+        with open(out, "rb") as f:
+            outs.append(f.read())
+    if outs[0].split(b"\n", 1)[0] != b"34 16" or outs[0] != outs[1]:
+        raise AssertionError("CLI PreComp from the .csr.npz: header or reproducibility")
+    walks_out = os.path.join(tmp, "k.walks")
+    run_cli("--task", "walks", "--input", karate, "--output", walks_out, "--mode", "PreComp",
+            "--walk-length", "10", "--num-walks", "2", "--p", "0.5", "--q", "2",
+            "--random_state", "0")
+    edges = set()
+    with open(karate) as f:
+        for line in f:
+            a, b = line.split()[:2]
+            edges |= {(a, b), (b, a)}
+    with open(walks_out) as f:
+        lines = [line.split() for line in f]
+    bad = sum((a, b) not in edges for w in lines for a, b in zip(w, w[1:]))
+    if len(lines) != 68 or bad:
+        raise AssertionError(f"CLI walks: {len(lines)} lines, {bad} non-edge steps")
+    log("[7e cli] karate: tocsr -> .csr.npz -> PreComp with PECANPY_TPU_APPLY_V2=1, two "
+        f"runs byte-identical; --task walks: {len(lines)} walks, every step an edge")
+
+
+def phase_precomp_quality():
+    """7f: the block-model gate through PreComp with the windowed applier."""
+    from pecanpy_tpu_torch import pecanpy
+    from pecanpy_tpu_torch.ops import apply as apply_lib
+
+    rng = np.random.default_rng(0)
+    adj, labels = sbm_graph(rng)
+    v2 = apply_lib.APPLY_V2
+    apply_lib.APPLY_V2 = True
+    try:
+        before = apply_lib.apply_sorted_stream_windowed.launches
+        g = pecanpy.PreComp.from_mat(adj, [str(i) for i in range(adj.shape[0])],
+                                     random_state=0, device="cuda")
+        emb = g.embed(dim=32, num_walks=8, walk_length=30, window_size=5, epochs=3)
+        launches = apply_lib.apply_sorted_stream_windowed.launches - before
+    finally:
+        apply_lib.APPLY_V2 = v2
+    f1 = micro_f1_nearest_centroid(emb, labels, rng)
+    log(f"[7f quality] block-model graph through PreComp, windowed applier ({launches} "
+        f"launches): micro-F1 {f1:.4f} (gate 0.9)")
+    if f1 < 0.9 or launches == 0:
+        raise AssertionError(f"micro-F1 {f1:.4f}, {launches} windowed launches")
+
+
 def main():
     import torch
 
@@ -791,6 +1164,7 @@ def main():
         REPO, "pecanpy_tpu_torch"
     ):
         raise RuntimeError("pecanpy_tpu_torch must come from this checkout")
+    t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
     results, max_err = phase_kernel_vs_plain()
@@ -798,16 +1172,25 @@ def main():
         launches = phase_main_path(tmp)
         phase_cli(tmp)
         hub_results, hub_launches = phase_hub_path(tmp)
+        t7 = time.perf_counter()
+        win_results, win_err = phase_windowed()
+        win_launches = phase_precomp(tmp)
+        phase_first_order(tmp)
+        phase_n2vpp_and_cli(tmp)
+        phase_precomp_quality()
+        log(f"[7] phase 7 took {time.perf_counter() - t7:.1f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    apply_row = results[("bfloat16", 1235 * (WALK_LENGTH + 1) + NEG_POOL)]
+    r_out = 1235 * (WALK_LENGTH + 1) + NEG_POOL
     rows = [
         ("apply_sorted_stream", "apply.cu", "apply.py:169", launches,
-         dict(apply_row, max_abs_err=max_err)),
+         dict(results[("bfloat16", r_out)], max_abs_err=max_err)),
         ("trial_propose", "trial.cu", "trialkernel.py:84",
          hub_launches["trial_propose"], dict(hub_results["trial_propose"], library_ms=None)),
         ("trial_accept", "trial.cu", "trialkernel.py:166",
          hub_launches["trial_accept"], dict(hub_results["trial_accept"], library_ms=None)),
+        ("apply_sorted_stream_windowed", "apply_v2.cu", "apply.py:296", win_launches,
+         dict(win_results[("bfloat16", r_out)], max_abs_err=win_err)),
     ]
     kernels = {"kernels": [{
         "name": name,
@@ -822,6 +1205,7 @@ def main():
         "bound_by": "bytes",
         "library_ms": r["library_ms"],
     } for name, src, tpu, n, r in rows]}
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

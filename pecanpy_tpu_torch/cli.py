@@ -1,10 +1,13 @@
 """Command-line interface of the PyTorch port.
 
-The embedding task of ``pecanpy_tpu/cli.py`` with the same flag names,
-plus ``--device``: read the graph, walk, train SGNS, write the embeddings
-as ``.npz`` (keys IDs/data) or word2vec text. Only the SparseOTF and
-DenseOTF modes and the default task are ported; the other modes, tasks
-and options raise ``NotImplementedError`` naming ROADMAP.md.
+The tasks of ``pecanpy_tpu/cli.py`` with the same flag names, plus
+``--device``: the embedding task (read the graph, walk, train SGNS, write
+the embeddings as ``.npz`` with keys IDs/data or as word2vec text), the
+conversions ``tocsr`` / ``todense``, and ``walks`` (the raw walks, one
+per line). Every walk mode runs, and the experimental
+``Node2vecPlusPlus`` too. ``--profile``, ``--trainer sequential``,
+``--checkpoint-dir`` and ``--devices`` above 1 raise
+``NotImplementedError`` naming ROADMAP.md.
 
 Example::
 
@@ -16,10 +19,9 @@ import warnings
 
 import numpy as np
 
-from pecanpy_tpu_torch import pecanpy
+from pecanpy_tpu_torch import experimental, graph, pecanpy
 from pecanpy_tpu_torch.wrappers import Timer
 
-PORTED_MODES = ("SparseOTF", "DenseOTF")
 ROADMAP = "see ROADMAP.md, 'Modules to port'"
 
 
@@ -43,7 +45,9 @@ def parse_args(argv=None):
         "--task",
         default="pecanpy",
         choices=["pecanpy", "tocsr", "todense", "walks"],
-        help="Pipeline to run; only the full embedding task is ported.",
+        help="Pipeline to run: full embedding, graph format conversion, "
+        "or `walks` to write the raw random walks (one space-separated "
+        "node-ID walk per line).",
     )
     parser.add_argument(
         "--mode",
@@ -51,11 +55,12 @@ def parse_args(argv=None):
         choices=[
             "DenseOTF",
             "FirstOrderUnweighted",
+            "Node2vecPlusPlus",
             "PreComp",
             "PreCompFirstOrder",
             "SparseOTF",
         ],
-        help="Walk engine variant; SparseOTF and DenseOTF are ported.",
+        help="Walk engine variant (Node2vecPlusPlus is experimental).",
     )
     parser.add_argument(
         "--dimensions", type=int, default=128, help="Embedding dimensionality."
@@ -176,31 +181,57 @@ def parse_args(argv=None):
 
 
 def _reject_unported(args):
-    if args.task != "pecanpy":
-        raise NotImplementedError(f"--task {args.task} is not ported yet ({ROADMAP})")
-    if args.mode not in PORTED_MODES:
-        raise NotImplementedError(f"--mode {args.mode} is not ported yet ({ROADMAP})")
     if args.profile:
         raise NotImplementedError(f"--profile is not ported yet ({ROADMAP})")
 
 
 def check_mode(g, args):
-    """Recommend better modes (the JAX CLI's decision table, restricted to
-    the ported modes' advice)."""
+    """Validate mode constraints and recommend better modes (the JAX CLI's
+    decision table, reference ``cli.py:179-254``): FirstOrderUnweighted
+    requires unweighted p = q = 1, PreCompFirstOrder p = q = 1; density
+    thresholds steer PreComp / SparseOTF / DenseOTF."""
     mode, weighted, p, q = args.mode, args.weighted, args.p, args.q
-    if p == q == 1:
+
+    if mode == "FirstOrderUnweighted":
+        if not p == q == 1 or weighted:
+            raise ValueError(
+                f"FirstOrderUnweighted only works when weighted = False and "
+                f"p = q = 1, got {weighted=}, {p=}, {q=}",
+            )
+        return
+    if p == q == 1 and not weighted:
         warnings.warn(
-            f"p = q = 1 makes the walk first-order: FirstOrderUnweighted or "
-            f"PreCompFirstOrder (not ported yet) would be faster than {mode}"
-            + ("" if weighted else " on this unweighted graph"),
+            f"unweighted graph with p = q = 1: FirstOrderUnweighted would "
+            f"be much faster and lighter than the selected {mode}",
             stacklevel=2,
         )
         return
-    dens = g.density
+
+    if mode == "PreCompFirstOrder":
+        if not p == q == 1:
+            raise ValueError(
+                f"PreCompFirstOrder only works when p = q = 1, got {p=}, {q=}",
+            )
+        return
+    if p == 1 == q:
+        warnings.warn(
+            f"p = q = 1 makes the walk first-order: PreCompFirstOrder would "
+            f"be much faster than the selected {mode} at little memory cost",
+            stacklevel=2,
+        )
+        return
+
+    size, dens = g.num_nodes, g.density
     if dens >= 0.2 and mode != "DenseOTF":
         warnings.warn(
             f"density {dens:.3f} >= 0.2: DenseOTF usually beats the "
             f"selected {mode} on graphs this dense",
+            stacklevel=2,
+        )
+    if dens < 0.001 and size < 10000 and mode != "PreComp":
+        warnings.warn(
+            f"density {dens:.2e} < 0.001 and {size} nodes < 10000: PreComp "
+            f"usually beats the selected {mode} on small sparse graphs",
             stacklevel=2,
         )
     if 0.001 <= dens < 0.2 and mode != "SparseOTF":
@@ -209,11 +240,18 @@ def check_mode(g, args):
             f"(0.001-0.2); consider it over the selected {mode}",
             stacklevel=2,
         )
+    if dens < 0.001 and size >= 10000 and mode != "SparseOTF":
+        warnings.warn(
+            f"density {dens:.3f} < 0.001 with {size} nodes >= 10000: "
+            f"SparseOTF usually beats the selected {mode} at this scale",
+            stacklevel=2,
+        )
 
 
 @Timer("load Graph")
 def read_graph(args):
-    """Load the input network into the selected mode."""
+    """Load the input network into the selected mode; the conversion
+    tasks save it and return None."""
     if args.directed and args.extend:
         raise NotImplementedError(
             "Node2vec+ not implemented for directed graph yet."
@@ -221,7 +259,16 @@ def read_graph(args):
     if args.extend and not args.weighted:
         print("NOTE: node2vec+ is equivalent to node2vec for unweighted graphs.")
 
-    mode_cls = getattr(pecanpy, args.mode)
+    if args.task in ("tocsr", "todense"):
+        g = graph.SparseGraph() if args.task == "tocsr" else graph.DenseGraph()
+        g.read_edg(args.input, args.weighted, args.directed, args.delimiter)
+        g.save(args.output)
+        return None
+
+    if args.mode == "Node2vecPlusPlus":
+        mode_cls = experimental.Node2vecPlusPlus
+    else:
+        mode_cls = getattr(pecanpy, args.mode)
     extra = {}
     if args.degree_cap is not None:
         extra["degree_cap"] = args.degree_cap if args.degree_cap > 0 else None
@@ -266,12 +313,29 @@ def preprocess(g):
     g.preprocess_transition_probs()
 
 
+def export_walks(args, g):
+    """Write the walks as node-ID lines, cut at their effective lengths,
+    one device chunk at a time: the corpus is never held as host lists."""
+    ids = g.nodes
+    with open(args.output, "w", encoding="utf-8") as f:
+        for walks, eff in g._walk_chunks(args.num_walks, args.walk_length):
+            for row, n in zip(walks.cpu().numpy(), eff.cpu().numpy()):
+                f.write(" ".join(ids[node] for node in row[:n]))
+                f.write("\n")
+
+
 def main(argv=None):
-    """End-to-end pipeline: read -> preprocess -> walk + embed -> save."""
+    """End-to-end pipeline: read -> preprocess -> walk + embed -> save
+    (or convert, or export the walks)."""
     args = parse_args(argv)
     _reject_unported(args)
     g = read_graph(args)
+    if g is None:  # conversion task
+        return
     preprocess(g)
+    if args.task == "walks":
+        Timer("generate walks", args.verbose)(export_walks)(args, g)
+        return
     total_tokens = g.num_nodes * args.num_walks * (args.walk_length + 1)
     streaming = args.streaming == "on" or (
         args.streaming == "auto"

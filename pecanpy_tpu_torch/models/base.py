@@ -113,6 +113,11 @@ class Base(BaseGraph):
         """Return (first_fn, step_fn), each taking (dg, u, ...)."""
         raise NotImplementedError
 
+    def _draw_width(self) -> int:
+        """Uniforms each walk step draws (the step functions' ``u`` is
+        [B, width]); 1 unless a mode needs more."""
+        return 1
+
     def preprocess_transition_probs(self):
         """Build device-resident state ahead of walking (the device graph)."""
         self.get_device_graph()
@@ -140,14 +145,16 @@ class Base(BaseGraph):
         """The (dg, start, chunk index) -> (walks, eff) walk callable.
 
         Default: the scan engine over this mode's step functions, fed by
-        ``engine.walk_uniforms(seed, chunk index)``. The OTF modes route
-        hub graphs to the hub engines instead.
+        ``engine.walk_uniforms(seed, chunk index, width)``. The OTF modes
+        route hub graphs to the hub engines instead.
         """
         first_fn, step_fn = self.make_step_fns()
+        width = self._draw_width()
 
         def run(dg, start, chunk_idx):
             u = engine.walk_uniforms(
-                self._seed(), chunk_idx, walk_length, start.shape[0], self.device
+                self._seed(), chunk_idx, walk_length, start.shape[0], self.device,
+                width,
             )
             return engine.generate_walks(
                 dg,

@@ -22,8 +22,8 @@ Every mode plugs in through two step callables:
     first_fn(u, cur, cur_rows)                  -> next   (1st-order)
     step_fn(u, cur, prev, cur_rows, prev_rows)  -> next   (2nd-order)
 
-where ``u`` is the step's [B, 1] uniforms. Walk semantics (reference
-``pecanpy.py:180-206``):
+where ``u`` is the step's [B, width] uniforms (width 1 for most
+modes). Walk semantics (reference ``pecanpy.py:180-206``):
 
 * column 0 holds the start node; steps fill columns 1..L;
 * a walker whose current node has no neighbors stops: ``eff_len`` is L+1
@@ -57,16 +57,17 @@ def _chunk_generator(seed: int, chunk_idx: int, device) -> torch.Generator:
 
 
 def walk_uniforms(
-    seed: int, chunk_idx: int, walk_length: int, batch: int, device
+    seed: int, chunk_idx: int, walk_length: int, batch: int, device, width: int = 1
 ) -> torch.Tensor:
-    """[walk_length, batch] uniforms of one walk chunk.
+    """[walk_length, batch, width] uniforms of one walk chunk, ``width``
+    per walker and step.
 
     A pure function of (seed, chunk index), like the JAX package's
     ``fold_in(base_key, i)``, so the streaming trainer's passes see the
     identical chunk stream. Row s feeds step s + 1.
     """
     gen = _chunk_generator(seed, chunk_idx, device)
-    return torch.rand((walk_length, batch), generator=gen, device=device)
+    return torch.rand((walk_length, batch, width), generator=gen, device=device)
 
 
 class TrialDrawStream:
@@ -101,8 +102,9 @@ def generate_walks(
         graph: fused device CSR.
         first_fn / step_fn: mode-specific transition samplers.
         start: [B] int32 start nodes.
-        u: [walk_length, B] uniforms in [0, 1); row 0 feeds the first
-            step, row s the step that fills column s + 1.
+        u: [walk_length, B] or [walk_length, B, width] uniforms in
+            [0, 1); row 0 feeds the first step, row s the step that fills
+            column s + 1. Each step gets its row as [B, width].
         walk_length: number of steps L.
 
     Returns:
@@ -110,10 +112,12 @@ def generate_walks(
         eff_len: [B] int32 effective walk lengths in [1, L + 1].
     """
     sentinel = graph.num_nodes
+    if u.dim() == 2:
+        u = u[:, :, None]
     start = start.to(torch.int32)
     start_rows = graph.gather_rows(start)
     alive = graph.rows_nbr(start_rows)[:, 0] != sentinel
-    first = first_fn(u[0][:, None], start, start_rows)
+    first = first_fn(u[0], start, start_rows)
     col1 = torch.where(alive, first, start)
     eff = torch.where(alive, walk_length + 1, 1).to(torch.int32)
     cols = [start, col1]
@@ -126,7 +130,7 @@ def generate_walks(
         has = graph.rows_nbr(cur_rows)[:, 0] != sentinel
         eff = torch.where(alive & ~has, step_idx, eff).to(torch.int32)
         alive = alive & has
-        nxt = step_fn(u[step_idx - 1][:, None], cur, prev, cur_rows, prev_rows)
+        nxt = step_fn(u[step_idx - 1], cur, prev, cur_rows, prev_rows)
         nxt = torch.where(alive, nxt, cur)
         nxt_rows = graph.gather_rows(nxt)  # THE one gather per step
         prev, cur, prev_rows, cur_rows = cur, nxt, cur_rows, nxt_rows

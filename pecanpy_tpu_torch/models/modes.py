@@ -1,17 +1,21 @@
-"""The OTF walk modes, as step-function factories over the shared engines.
+"""The five walk modes, as step-function factories over the shared engines.
 
-Counterpart of ``pecanpy_tpu/models/modes.py`` for ``SparseOTF`` and
-``DenseOTF``. The two differ only in which host container they parse
-into; both feed the same fused row layout. Graphs without hubs walk with
-the scan engine over the step functions below; graphs with hubs walk
-with the hub engines (``_AmortizedOTFMixin``).
+Counterpart of ``pecanpy_tpu/models/modes.py``. ``SparseOTF`` and
+``DenseOTF`` differ only in which host container they parse into; both
+feed the same fused row layout. Graphs without hubs walk with the scan
+engine over the step functions below; the OTF modes walk graphs with
+hubs with the hub engines (``_AmortizedOTFMixin``). ``FirstOrderUnweighted``,
+``PreCompFirstOrder`` and ``PreComp`` always take the scan engine.
 
 Step functions receive the *pre-gathered fused rows* of the current and
-previous nodes (carried by the engine) and never touch the node table.
+previous nodes (carried by the engine) and never touch the node table;
+PreComp's step also reads one row of its per-edge table, which its step
+function closes over.
 """
 import os
 
 import numpy as np
+import torch
 
 from pecanpy_tpu_torch.graph import DenseGraph, SparseGraph
 from pecanpy_tpu_torch.models import engine
@@ -25,24 +29,32 @@ from pecanpy_tpu_torch.ops.layout import (
 )
 
 
-def _want_cdf(num_nodes: int, max_degree: int, degree_cap) -> bool:
+def _want_cdf(mode, max_degree: int) -> bool:
     """Should this graph carry the first-order CDF channel?
 
-    The hub walkers' capped-row proposal reads it instead of a prefix sum
-    of the wgt row every trial, so hub graphs get it within a budget of
-    N * dpad * 4 bytes (default 2 GiB, ``PECANPY_TPU_CDF_BUDGET_MB``; 0
-    disables). Graphs without hubs walk with the scan engine, which has no
-    use for it (``pecanpy_tpu/models/modes.py:_want_cdf``).
+    The PreComp modes need it (``_needs_cdf_channel``). The hub walkers'
+    capped-row proposal reads it instead of a prefix sum of the wgt row
+    every trial, so the OTF modes (``_cdf_for_hubs``) give it to hub
+    graphs within a budget of N * dpad * 4 bytes (default 2 GiB,
+    ``PECANPY_TPU_CDF_BUDGET_MB``; 0 disables). Graphs without hubs walk
+    the OTF modes with the scan engine, which has no use for it
+    (``pecanpy_tpu/models/modes.py:_want_cdf``).
     """
-    if degree_cap is None or max_degree <= degree_cap:
+    if mode._needs_cdf_channel:
+        return True
+    cap = mode.degree_cap
+    if cap is None or max_degree <= cap or not mode._cdf_for_hubs:
         return False
     budget = int(os.environ.get("PECANPY_TPU_CDF_BUDGET_MB", "2048")) * (1 << 20)
-    dpad = -(-min(max_degree, degree_cap) // LANE) * LANE
-    return num_nodes * dpad * 4 <= budget
+    dpad = -(-min(max_degree, cap) // LANE) * LANE
+    return mode.num_nodes * dpad * 4 <= budget
 
 
 class _SparseModeBase(Base, SparseGraph):
     """Modes whose host container is the CSR ``SparseGraph``."""
+
+    _needs_cdf_channel = False
+    _cdf_for_hubs = False
 
     def _build_device_graph(self) -> DeviceCSR:
         deg_max = int(np.diff(self.indptr).max()) if self.num_edges else 0
@@ -52,7 +64,7 @@ class _SparseModeBase(Base, SparseGraph):
             self.data,
             gamma=self.gamma,
             with_thresholds=self.extend,
-            with_cdf=_want_cdf(self.num_nodes, deg_max, self.degree_cap),
+            with_cdf=_want_cdf(self, deg_max),
             degree_cap=self.degree_cap,
             device=self.device,
         )
@@ -60,6 +72,9 @@ class _SparseModeBase(Base, SparseGraph):
 
 class _DenseModeBase(Base, DenseGraph):
     """Modes whose host container is the dense ``DenseGraph``."""
+
+    _needs_cdf_channel = False
+    _cdf_for_hubs = False
 
     def _build_device_graph(self) -> DeviceCSR:
         dense = np.asarray(self.data)
@@ -69,7 +84,7 @@ class _DenseModeBase(Base, DenseGraph):
             dense,
             gamma=self.gamma,
             with_thresholds=self.extend,
-            with_cdf=_want_cdf(dense.shape[0], deg_max, self.degree_cap),
+            with_cdf=_want_cdf(self, deg_max),
             degree_cap=self.degree_cap,
             device=self.device,
         )
@@ -110,8 +125,11 @@ class _AmortizedOTFMixin:
     UNROLL`` in the queued one (the JAX engine's ``unroll *
     flush_every``). Graphs without hubs keep the scan engine. The JAX
     package's per-step rejection sampler (``PECANPY_TPU_AMORTIZED=0``)
-    is not ported: on a hub graph that setting raises.
+    is not ported: on a hub graph that setting raises. Hub graphs get the
+    first-order CDF channel (``_cdf_for_hubs``, see ``_want_cdf``).
     """
+
+    _cdf_for_hubs = True
 
     def _walk_queue_factor(self) -> int:
         """Walks per chunk = queue_factor * walker lanes (hub graphs): the
@@ -165,3 +183,165 @@ class DenseOTF(_AmortizedOTFMixin, _DenseModeBase):
 
     def make_step_fns(self):
         return _otf_step_fns(self.p, self.q, self.extend)
+
+
+class FirstOrderUnweighted(_SparseModeBase):
+    """Uniform neighbor sampling; no probabilities at all (reference
+    ``pecanpy.py:293-309``): the next node is a uniform entry of the row,
+    of a hub's edges on a hub graph."""
+
+    def make_step_fns(self):
+        def move(dg, u, cur_rows):
+            kk = rejection.slot_offsets(u[:, 0], dg.rows_degree(cur_rows))
+            return rejection.uniform_propose(dg, kk, cur_rows)
+
+        def first_fn(dg, u, cur, cur_rows):
+            return move(dg, u, cur_rows)
+
+        def step_fn(dg, u, cur, prev, cur_rows, prev_rows):
+            return move(dg, u, cur_rows)
+
+        return first_fn, step_fn
+
+
+class PreCompFirstOrder(_SparseModeBase):
+    """First-order weighted walks from each node's precomputed transition
+    CDF (reference ``pecanpy.py:312-361``, per-node alias tables there):
+    the CDF is a fused-row channel, so a step is the row gather the
+    engine makes anyway plus a compare-reduce. On a hub graph a hub's
+    draw comes from its alias slots: the step then draws three uniforms,
+    the row's, the slot's and the alias coin's (JAX: ``split(key)``)."""
+
+    _needs_cdf_channel = True
+
+    def _draw_width(self) -> int:
+        return 3 if self.get_device_graph().has_hubs else 1
+
+    def make_step_fns(self):
+        def move(dg, u, cur_rows):
+            kk = u_self = None
+            if dg.has_hubs:
+                kk = rejection.slot_offsets(u[:, 1], dg.rows_degree(cur_rows))
+                u_self = u[:, 2]
+            x, _ = rejection.propose(dg, u[:, :1], cur_rows, True, kk, u_self)
+            return x
+
+        def first_fn(dg, u, cur, cur_rows):
+            return move(dg, u, cur_rows)
+
+        def step_fn(dg, u, cur, prev, cur_rows, prev_rows):
+            return move(dg, u, cur_rows)
+
+        return first_fn, step_fn
+
+
+class PreComp(_SparseModeBase):
+    """Precomputed second-order transition CDFs for every directed edge.
+
+    Reference ``pecanpy.py:364-507``: one table per directed edge (cur,
+    prev), addressed by flat edge id ``indptr[cur] + position of prev in
+    cur's row`` (``pecanpy.py:426-436``). Layout as in the JAX package: an
+    [E, min(64, width)] f32 table holding, for every edge whose source
+    degree fits the row, the full transition CDF out of cur given prev;
+    a step is one edge-row gather and a compare-reduce. Edges of wider
+    nodes fall back to the on-the-fly bias on the carried rows, drawing
+    with the same uniform (the same law, computed instead of looked up).
+    Memory is E x 64 f32 whatever the degree skew; the guard is
+    E * 64 < 2^31. The first step (no prev) samples the node's
+    first-order CDF channel (``pecanpy.py:412-424``).
+    """
+
+    _needs_cdf_channel = True
+    PRECOMP_WIDTH = 64
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        # edge-id addressing (indptr[cur] + position) needs full-width
+        # fused rows; wide nodes use the OTF fallback instead of hubs
+        self.degree_cap = None
+        self.edge_cdf = None
+
+    def preprocess_transition_probs(self):
+        dg = self.get_device_graph()
+        w = min(self.PRECOMP_WIDTH, dg.dpad)
+        e = int(dg.indptr[-1])
+        if e * w >= 2**31:
+            raise ValueError(
+                f"PreComp's per-edge tables need E * {w} < 2^31 (got E={e}); "
+                "use SparseOTF for graphs of this size (the reference's "
+                "mode-selection heuristics give the same advice)."
+            )
+        kernel = _pick_kernel(self.extend)
+        p, q = self.p, self.q
+        edge_cur, slot = _flat_edge_positions(dg)
+
+        def build(lo, hi):
+            """CDF rows of edges lo..hi-1: the transition distribution out
+            of u given the walker arrived from x, for each edge (u -> x)."""
+            cur_rows = dg.gather_rows(edge_cur[lo:hi])
+            edge_prev = dg.rows_nbr(cur_rows).gather(1, slot[lo:hi, None])[:, 0]
+            prev_rows = dg.gather_rows(edge_prev)
+            weights = kernel(dg, cur_rows, prev_rows, edge_prev, p, q)
+            cdf = torch.cumsum(weights, dim=-1)
+            total = torch.clamp(cdf[:, -1:], min=1e-30)
+            # rows of nodes with deg <= w carry their complete CDF in the
+            # first w slots (padding saturates at 1.0); wider rows are
+            # never read (OTF fallback)
+            return torch.clamp(cdf / total, max=1.0)[:, :w]
+
+        # Chunked over edge slices under a transient-bytes budget
+        # (``PECANPY_TPU_PRECOMP_BUILD_MB``, default 1024): the one-shot
+        # form gathers [E, W] cur and prev rows, tens of GB at the sizes
+        # the guard admits. Per-edge rows are independent, so the slices
+        # are bit-identical to the one-shot build.
+        row_w = dg.fused.shape[1]
+        per_edge = (2 * row_w + 2 * dg.dpad + w) * 4
+        budget_mb = int(os.environ.get("PECANPY_TPU_PRECOMP_BUILD_MB", "1024"))
+        slice_e = max(min(e, (budget_mb << 20) // max(per_edge, 1)), 256)
+        parts = [build(lo, min(lo + slice_e, e)) for lo in range(0, max(e, 1), slice_e)]
+        self.edge_cdf = parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def make_step_fns(self):
+        kernel = _pick_kernel(self.extend)
+        p, q = self.p, self.q
+        edge_cdf = self.edge_cdf
+        w = edge_cdf.shape[1]
+        dg0 = self.get_device_graph()
+        # no node wider than the table row: the fallback never applies
+        fallback = w < dg0.dpad and dg0.max_degree > w
+
+        def first_fn(dg, u, cur, cur_rows):
+            choice = sampling.sample_from_cdf(u, dg.rows_cdf(cur_rows))
+            return sampling.pick_int_columns(dg.rows_nbr(cur_rows), choice)
+
+        def step_fn(dg, u, cur, prev, cur_rows, prev_rows):
+            cur_nbr = dg.rows_nbr(cur_rows)
+            pos = transition.row_searchsorted(cur_nbr, prev[:, None])[:, 0]
+            pos = torch.clamp(pos, max=cur_nbr.shape[1] - 1)
+            # clamped into the table, as the JAX gather clamps: a dead
+            # walker or a prev missing from cur's row reads some edge's
+            # row, and the engine discards what it picks
+            edge_row = torch.clamp(dg.indptr[cur.long()] + pos, 0, edge_cdf.shape[0] - 1)
+            choice = sampling.sample_from_cdf(u, edge_cdf[edge_row.long()])
+            if fallback:
+                # wide-degree fallback: the same law, computed on the fly
+                # from the carried rows with the same uniform
+                weights = kernel(dg, cur_rows, prev_rows, prev, p, q)
+                choice_otf = sampling.categorical_rows(u, weights)
+                deg = transition.row_degrees(dg, cur_rows)
+                choice = torch.where(deg > w, choice_otf, choice)
+            return sampling.pick_int_columns(cur_nbr, choice)
+
+        return first_fn, step_fn
+
+
+def _flat_edge_positions(dg: DeviceCSR):
+    """Per-edge (source node, slot of the edge in the node's row), both
+    [E] int64, in CSR edge order."""
+    e = int(dg.indptr[-1])
+    dev = dg.fused.device
+    edge_cur = torch.repeat_interleave(
+        torch.arange(dg.num_nodes, device=dev), dg.deg.long(), output_size=e
+    )
+    slot = torch.arange(e, device=dev) - dg.indptr.long()[edge_cur]
+    return edge_cur, slot

@@ -1,10 +1,11 @@
 """Build and bind the package's CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` into one shared library with a plain C
-interface, loaded with ctypes. The build runs at first use, never at
-import, into ``build/`` beside the package (a directory git ignores); the
-library's file name carries a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one is reused. A failed build raises.
+The sources compile with ``nvcc``, one process per source started
+together, and link into one shared library with a plain C interface,
+loaded with ctypes. The build runs at first use, never at import, into
+``build/`` beside the package (a directory git ignores); the library's
+file name carries a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one is reused. A failed build raises.
 """
 import ctypes
 import functools
@@ -19,7 +20,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 )
 
 
@@ -51,13 +52,24 @@ def load() -> ctypes.CDLL:
     lib_path = BUILD_DIR / f"libpecanpy_kernels_{digest.hexdigest()[:16]}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+        nvcc = _nvcc()
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for cmd in cmds]
+        outs = [proc.communicate() for proc in procs]
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        for cmd, proc, (_, err) in zip(cmds, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n{err}")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
+        for obj in objs:
+            obj.unlink()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"kernel build failed ({' '.join(cmd)}):\n{proc.stderr}"
-            )
+            raise RuntimeError(f"kernel link failed ({' '.join(cmd)}):\n{proc.stderr}")
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name in ("pecanpy_apply_sorted_f32", "pecanpy_apply_sorted_bf16"):
@@ -74,6 +86,15 @@ def load() -> ctypes.CDLL:
         ]
         fn.restype = ctypes.c_int
     ptr, i64, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    for name in ("pecanpy_apply_windowed_f32", "pecanpy_apply_windowed_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [
+            ptr, ptr, ptr,  # table, ids, upd
+            ptr, ptr, ptr,  # bounds, w0, nw (the window plan)
+            i64, i64, i32,  # R, N, D
+            ctypes.c_uint, ptr,  # seed, stream
+        ]
+        fn.restype = ctypes.c_int
     lib.pecanpy_trial_propose.argtypes = [
         ptr, i64, i32, i32,  # rows, stride, dpad, cdf_off
         ptr, i64, ptr, ptr,  # edge_pack, n_slots, kk, u

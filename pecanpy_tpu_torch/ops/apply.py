@@ -15,7 +15,11 @@ On a CUDA table the update runs in two parts, as in the JAX package:
    (``csrc/apply.cu``, the port of the Pallas ``_applier_kernel``),
    which updates the table IN PLACE, touching only the rows the stream
    names. bf16 tables accumulate in f32 and write back with stochastic
-   rounding.
+   rounding. With ``PECANPY_TPU_APPLY_V2=1`` (``APPLY_V2``) the update
+   runs ``apply_sorted_stream_windowed`` instead (``csrc/apply_v2.cu``,
+   the port of ``_applier_kernel_v2``): the same function, one block per
+   32-row table tile walking its slice of the stream in 16-row windows,
+   and bit-equal to the first kernel.
 
 On a CPU table ``apply_mean_updates`` / ``apply_mean_updates_two`` take
 the scatter path, the same one the JAX package takes without Pallas
@@ -25,6 +29,7 @@ Known difference from the TPU kernel: the payload stays f32 here, where
 the TPU ships it as bf16 into bf16 one-hot matmuls (``DOT_BF16``). The
 port is therefore closer to the f32 scatter semantics.
 """
+import os
 from typing import Union
 
 import torch
@@ -131,18 +136,23 @@ def apply_sorted_stream_plain(
 ) -> torch.Tensor:
     """Plain torch version of ``apply_sorted_stream`` (same contract).
 
-    f32 tables: ``index_add_`` of ``-upd_s``. bf16 tables: per touched row
-    the f32 sum of its rows, subtracted in f32, written back with the
-    kernel's stochastic rounding bits.
+    Per touched row the f32 sum of its rows, taken from 0 as the kernel
+    takes it, subtracted in f32; bf16 tables write back with the kernel's
+    stochastic rounding bits.
     """
-    if table.dtype == torch.float32:
-        return table.index_add_(0, ids_s.long(), upd_s, alpha=-1)
     uniq, inv = torch.unique_consecutive(ids_s.long(), return_inverse=True)
     sums = torch.zeros(
         (uniq.numel(), table.shape[1]), dtype=torch.float32, device=table.device
     ).index_add_(0, inv, upd_s.to(torch.float32))
-    new = table[uniq].to(torch.float32) - sums
-    table[uniq] = stochastic_round_bf16(new, seed, uniq)
+    return _write_rows(table, uniq, sums, seed)
+
+
+def _write_rows(table, rows, sums, seed):
+    """``table[rows] -= sums`` in f32; a bf16 table rounds stochastically."""
+    new = table[rows].to(torch.float32) - sums
+    if table.dtype == torch.bfloat16:
+        new = stochastic_round_bf16(new, seed, rows)
+    table[rows] = new
     return table
 
 
@@ -164,8 +174,32 @@ def apply_sorted_stream(
     """
     if table.device.type == "cpu":
         return apply_sorted_stream_plain(table, ids_s, upd_s, seed)
+    _check_cuda_stream(table, ids_s, upd_s, "apply_sorted_stream")
+    if ids_s.shape[0] == 0:
+        return table
+    lib = _kernels.load()
+    fn = (
+        lib.pecanpy_apply_sorted_bf16
+        if table.dtype == torch.bfloat16
+        else lib.pecanpy_apply_sorted_f32
+    )
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    code = fn(
+        table.data_ptr(), ids_s.data_ptr(), upd_s.data_ptr(), ids_s.shape[0],
+        table.shape[0], table.shape[1], seed & _MASK32, stream,
+    )
+    _kernels.check(lib, code, "apply_sorted_stream")
+    apply_sorted_stream.launches += 1
+    return table
+
+
+apply_sorted_stream.launches = 0
+
+
+def _check_cuda_stream(table, ids_s, upd_s, what):
+    """Raise on anything the CUDA appliers do not take."""
     if table.device.type != "cuda":
-        raise ValueError(f"apply_sorted_stream: unsupported device {table.device}")
+        raise ValueError(f"{what}: unsupported device {table.device}")
     if table.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"table must be float32 or bfloat16, got {table.dtype}")
     if ids_s.dtype != torch.int32 or upd_s.dtype != torch.float32:
@@ -195,28 +229,132 @@ def apply_sorted_stream(
             f"{torch.cuda.current_device()}; the kernel launches on the "
             "current device"
         )
+
+
+# -- the windowed kernel and its plain version -----------------------------
+
+# Table rows per tile and stream rows per window of the windowed kernel
+# (``csrc/apply_v2.cu`` fixes the same two constants; its header says why).
+WINDOW_TILE = 32
+WINDOW_ROWS = 16
+# widest row the kernel's shared memory holds: a [TILE, D] f32 accumulator
+# plus two [ROWS, D] f32 windows within the 227 KB a block may use
+MAX_WINDOWED_DIM = 896
+
+
+def window_plan(ids_s: torch.Tensor, num_rows: int, tile: int = WINDOW_TILE,
+                window: int = WINDOW_ROWS):
+    """Per-tile slices of a sorted stream, in ``window``-row windows.
+
+    The plan of the JAX package's windowed driver (``_finalize_and_run``
+    and ``_apply_pallas_v2``): ``bounds[t]`` is the first stream row whose
+    id reaches tile t's first table row (a searchsorted of the tile edges);
+    tile t reads the stream windows ``w0[t] .. w0[t] + nw[t] - 1``, those
+    aligned ``window``-row blocks that overlap ``[bounds[t], bounds[t+1])``
+    (none for an empty slice). Returns int32 (bounds [T + 1], w0 [T],
+    nw [T]) with ``T = ceil(num_rows / tile)``.
+    """
+    n_tiles = -(-num_rows // tile)
+    edges = torch.arange(n_tiles + 1, dtype=torch.int32, device=ids_s.device) * tile
+    bounds = torch.searchsorted(ids_s, edges, out_int32=True)
+    lo, hi = bounds[:-1], bounds[1:]
+    w0 = torch.div(lo, window, rounding_mode="floor")
+    nw = torch.clamp(-torch.div(w0 * window - hi, window, rounding_mode="floor"), min=0)
+    nw = torch.where(hi > lo, nw, 0).to(torch.int32)
+    return bounds, w0, nw
+
+
+def apply_sorted_stream_windowed_plain(
+    table: torch.Tensor, ids_s: torch.Tensor, upd_s: torch.Tensor, seed: int = 0,
+    tile: int = WINDOW_TILE, window: int = WINDOW_ROWS,
+) -> torch.Tensor:
+    """Plain torch version of ``apply_sorted_stream_windowed``.
+
+    Follows the kernel's plan: every tile reads its stream windows, keeps
+    the rows whose id falls in the tile (rows of neighbouring tiles ride
+    the shared boundary windows and are masked out, as are ids outside
+    [0, N)), sums each table row's payload in a [tile, D] f32 accumulator
+    in stream order from 0, and writes back the rows its slice names. The
+    tiles run at once here, each in its own accumulator block.
+    """
+    n, d = table.shape
+    r = ids_s.shape[0]
     if r == 0:
         return table
+    dev = table.device
+    _, w0, nw = window_plan(ids_s, n, tile, window)
+    tiles = torch.repeat_interleave(torch.arange(nw.numel(), device=dev), nw.long())
+    first = torch.cumsum(nw.long(), 0) - nw.long()  # each tile's first visit
+    visit_w = w0.long()[tiles] + torch.arange(tiles.numel(), device=dev) - first[tiles]
+    rows = visit_w[:, None] * window + torch.arange(window, device=dev)[None, :]
+    ok = rows < r
+    rows = torch.clamp(rows, max=r - 1)
+    ids = ids_s.long()[rows]
+    local = ids - tiles[:, None] * tile
+    ok &= (local >= 0) & (local < tile) & (ids < n)
+    # visits are tile-major and windows ascending: flattening keeps
+    # stream order, and every kept row lands in exactly one visit
+    slot = (tiles[:, None] * tile + local)[ok]
+    acc = torch.zeros((nw.numel() * tile, d), dtype=torch.float32, device=dev)
+    acc.index_add_(0, slot, upd_s.to(torch.float32)[rows[ok]])
+    named = torch.unique_consecutive(ids[ok])
+    return _write_rows(table, named, acc[named], seed)
+
+
+def apply_sorted_stream_windowed(
+    table: torch.Tensor, ids_s: torch.Tensor, upd_s: torch.Tensor, seed: int = 0
+) -> torch.Tensor:
+    """``table[i] -= sum of upd_s rows with id i``, IN PLACE; returns table.
+
+    The same contract and result as ``apply_sorted_stream``, through the
+    windowed kernel of ``csrc/apply_v2.cu`` (the port of the Pallas
+    ``_applier_kernel_v2``), which the wrapper feeds the ``window_plan``
+    of the stream. Ids outside [0, N) are dropped. A CUDA table launches
+    the kernel on the current stream (counted in
+    ``apply_sorted_stream_windowed.launches``) or raises; a CPU table runs
+    ``apply_sorted_stream_windowed_plain``.
+    """
+    if table.device.type == "cpu":
+        return apply_sorted_stream_windowed_plain(table, ids_s, upd_s, seed)
+    _check_cuda_stream(table, ids_s, upd_s, "apply_sorted_stream_windowed")
+    if table.shape[1] > MAX_WINDOWED_DIM:
+        raise ValueError(
+            f"the windowed applier takes rows of at most {MAX_WINDOWED_DIM} "
+            f"elements, got {table.shape[1]}"
+        )
+    if ids_s.shape[0] == 0:
+        return table
+    bounds, w0, nw = window_plan(ids_s, table.shape[0])
     lib = _kernels.load()
     fn = (
-        lib.pecanpy_apply_sorted_bf16
+        lib.pecanpy_apply_windowed_bf16
         if table.dtype == torch.bfloat16
-        else lib.pecanpy_apply_sorted_f32
+        else lib.pecanpy_apply_windowed_f32
     )
     stream = torch.cuda.current_stream(table.device).cuda_stream
     code = fn(
-        table.data_ptr(), ids_s.data_ptr(), upd_s.data_ptr(), r,
-        table.shape[0], table.shape[1], seed & _MASK32, stream,
+        table.data_ptr(), ids_s.data_ptr(), upd_s.data_ptr(), bounds.data_ptr(),
+        w0.data_ptr(), nw.data_ptr(), ids_s.shape[0], table.shape[0],
+        table.shape[1], seed & _MASK32, stream,
     )
-    _kernels.check(lib, code, "apply_sorted_stream")
-    apply_sorted_stream.launches += 1
+    _kernels.check(lib, code, "apply_sorted_stream_windowed")
+    apply_sorted_stream_windowed.launches += 1
     return table
 
 
-apply_sorted_stream.launches = 0
+apply_sorted_stream_windowed.launches = 0
 
 
 # -- stream prep and the public entry points -------------------------------
+
+# PECANPY_TPU_APPLY_V2=1 sends every CUDA table update through the windowed
+# kernel (read at import, as the JAX package reads it; the entry points
+# read this attribute at call time, so it can be set afterwards).
+APPLY_V2 = os.environ.get("PECANPY_TPU_APPLY_V2", "0") == "1"
+
+
+def _cuda_applier():
+    return apply_sorted_stream_windowed if APPLY_V2 else apply_sorted_stream
 
 
 def sorted_stream_one(ids, upd, cnt, lr, cap: Cap):
@@ -262,7 +400,7 @@ def apply_mean_updates(
     if ids.shape[0] == 0:
         return table
     ids_s, upd_s = sorted_stream_one(ids, upd, cnt, lr, cap)
-    return apply_sorted_stream(table, ids_s, upd_s, rng_seed)
+    return _cuda_applier()(table, ids_s, upd_s, rng_seed)
 
 
 def apply_mean_updates_two(
@@ -294,4 +432,4 @@ def apply_mean_updates_two(
     ids_s, upd_s = sorted_stream_two(
         ids_a, upd_a, cnt_a, ids_b, upd_b, cnt_b, lr, cap_a, cap_b
     )
-    return apply_sorted_stream(table, ids_s, upd_s, rng_seed)
+    return _cuda_applier()(table, ids_s, upd_s, rng_seed)

@@ -1,8 +1,9 @@
 """First-order proposals and the exact rejection trial for hub graphs.
 
 Counterpart of ``pecanpy_tpu/ops/rejection.py`` (``alias_propose``,
-``fused_propose``, ``propose``, ``membership``, ``_bias_from_membership``,
-``_bias``, ``_single_trial`` and ``_trial_block``). A second-order step
+``fused_propose``, ``propose``, ``uniform_propose``, ``membership``,
+``_bias_from_membership``, ``_bias``, ``_single_trial`` and
+``_trial_block``). A second-order step
 where either endpoint may be a hub samples the exact node2vec law by
 rejection, with O(1) memory accesses per trial whatever the degree:
 
@@ -34,6 +35,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from pecanpy_tpu_torch.ops import hubs as hubs_lib
+from pecanpy_tpu_torch.ops import sampling
 from pecanpy_tpu_torch.ops.layout import DeviceCSR
 from pecanpy_tpu_torch.ops.transition import row_thresholds
 
@@ -155,6 +157,22 @@ def propose(
     x_h, w_h = alias_propose(dg, kk, u_self, cur_rows)
     is_hub = dg.rows_is_hub(cur_rows)
     return torch.where(is_hub, x_h, x_s), torch.where(is_hub, w_h, w_s)
+
+
+def uniform_propose(
+    dg: DeviceCSR, kk: torch.Tensor, cur_rows: torch.Tensor
+) -> torch.Tensor:
+    """Uniform neighbor draw (FirstOrderUnweighted), hub-aware: slot
+    ``kk`` ([B] int32 in ``[0, max(deg, 1))``) of cur's row, or of a hub's
+    edges in ``edge_pack``."""
+    nbr = dg.rows_nbr(cur_rows)
+    # a hub's kk reaches past the row; its pick is discarded below
+    x_s = sampling.pick_int_columns(nbr, torch.clamp(kk, max=nbr.shape[1] - 1))
+    if not dg.has_hubs:
+        return x_s
+    rows = dg.fetch_edge_slots(dg.rows_edge_base(cur_rows) + kk)
+    x_h = rows.view(torch.int32)[..., hubs_lib.EP_NBR_SELF]
+    return torch.where(dg.rows_is_hub(cur_rows), x_h, x_s)
 
 
 def membership(

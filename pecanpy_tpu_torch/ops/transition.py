@@ -31,6 +31,19 @@ def _active_width(graph: DeviceCSR) -> int:
     return min(max(width, 8), graph.dpad)
 
 
+def row_searchsorted(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Row-wise ``searchsorted``: first index where a[b, i] >= v[b, j].
+
+    Args:
+        a: [B, D] rows, each sorted ascending.
+        v: [B, K] query values of ``a``'s dtype.
+
+    Returns:
+        [B, K] int32 insertion positions in [0, D].
+    """
+    return torch.searchsorted(a.contiguous(), v.contiguous(), out_int32=True)
+
+
 def _locate_in_prev(cur_nbr: torch.Tensor, prev_nbr: torch.Tensor,
                     prev_wgt=None):
     """For each candidate x in cur's row, look x up in prev's row.
@@ -49,6 +62,11 @@ def _locate_in_prev(cur_nbr: torch.Tensor, prev_nbr: torch.Tensor,
     return found, prev_wgt_of
 
 
+def row_degrees(graph: DeviceCSR, rows: torch.Tensor) -> torch.Tensor:
+    """[B] int32 true degrees, counted from the nbr channel sentinels."""
+    return (graph.rows_nbr(rows) != graph.num_nodes).sum(dim=-1, dtype=torch.int32)
+
+
 def row_thresholds(
     graph: DeviceCSR, rows: torch.Tensor, gamma: float
 ) -> torch.Tensor:
@@ -59,6 +77,11 @@ def row_thresholds(
     mean = w.sum(dim=-1) / deg
     var = torch.clamp((w * w).sum(dim=-1) / deg - mean * mean, min=0.0)
     return torch.clamp(mean + gamma * torch.sqrt(var), min=0.0)
+
+
+def first_order_weights_rows(graph: DeviceCSR, rows: torch.Tensor) -> torch.Tensor:
+    """First-order transition weights: the raw edge weights w(cur, .)."""
+    return graph.rows_wgt(rows)
 
 
 def node2vec_weights_rows(
@@ -129,6 +152,50 @@ def node2vec_plus_weights_rows(
     alpha = inv_q + (1.0 - inv_q) * t
     noisy = w < theta_cur
     alpha = torch.where(noisy, min(1.0, inv_q), alpha)
+
+    w = w * torch.where(is_out, alpha, 1.0)
+    w = w * torch.where(is_prev, 1.0 / p, 1.0)
+    return w
+
+
+def node2vec_pp_weights_rows(
+    graph: DeviceCSR,
+    cur_rows: torch.Tensor,
+    prev_rows: torch.Tensor,
+    prev: torch.Tensor,
+    p: float,
+    q: float,
+) -> torch.Tensor:
+    """Experimental node2vec++ continuous bias weights from fused rows.
+
+    Out edges are candidates with w(prev, x) < threshold[x] (prev
+    excluded); the interpolant t flips to ``1 - t`` when q < 1, and the
+    bias is ``alpha = t * b / (1 + (b - 1)) * |1 - 1/q| + min(1, 1/q)``
+    with ``b = w(cur, x) / threshold[x]`` (the b-terms cancel; kept as the
+    JAX package writes them, for parity).
+    """
+    d = _active_width(graph)
+    cur_nbr = graph.rows_nbr(cur_rows)[:, :d]
+    w = graph.rows_wgt(cur_rows)[:, :d]
+    prev_nbr = graph.rows_nbr(prev_rows)[:, :d]
+    _, prev_wgt_of = _locate_in_prev(
+        cur_nbr, prev_nbr, graph.rows_wgt(prev_rows)[:, :d]
+    )
+    is_prev = cur_nbr == prev[:, None]
+
+    theta_x = torch.clamp(graph.rows_thr(cur_rows)[:, :d], min=_EPS)
+    is_out = (prev_wgt_of < theta_x) & ~is_prev
+
+    t = torch.clamp(prev_wgt_of / theta_x, 0.0, 1.0)
+    if q < 1.0:
+        t = 1.0 - t
+    b = w / theta_x
+
+    inv_q = 1.0 / q
+    scale = abs(1.0 - inv_q)
+    offset = min(1.0, inv_q)
+    # 1 + (b - 1) == b; guard against b == 0 on padded zero-weight slots
+    alpha = t * b / torch.clamp(1.0 + (b - 1.0), min=_EPS) * scale + offset
 
     w = w * torch.where(is_out, alpha, 1.0)
     w = w * torch.where(is_prev, 1.0 / p, 1.0)

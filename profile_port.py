@@ -2,10 +2,10 @@
 """Where the PyTorch port's time goes, on one NVIDIA GPU.
 
     python3 profile_port.py [--out chiprun_out/profile_port.txt]
-                            [--sections walks,sgns,hub]
+                            [--sections walks,sgns,hub,precomp]
 
 Runs the configurations of ``chip_smoke.py`` (p=0.5, q=2, walks of 80
-steps) and measures three steady-state windows:
+steps) and measures these steady-state windows:
 
 - walks: on the main path's graph (the 1M-node, mean-degree-16 weighted
   graph of ``bench.py``), ``simulate_walks_device(1, 80)`` after a
@@ -16,7 +16,10 @@ steps) and measures three steady-state windows:
   final table fetch);
 - hub: on the hub path's graph (the 1M-node Chung-Lu power-law graph of
   ``benchmarks/bench_powerlaw.py``), one dispatch of the queued engine:
-  262,144 walks of 80 steps on 32,768 lanes, reported per round.
+  262,144 walks of 80 steps on 32,768 lanes, reported per round;
+- precomp: on the main path's graph, the PreComp edge-CDF build (host
+  clock), its ``simulate_walks_device(1, 80)``, and the SGNS window on
+  those walks with the windowed applier (``PECANPY_TPU_APPLY_V2``).
 
 Each window is timed twice: on the host clock with a synchronize at each
 end (ms per step, rate), and under ``torch.profiler`` (device time by
@@ -70,7 +73,8 @@ def profiled(fn, label, out):
         log(f"    {e.key[:40]:40s} {self_device_us(e) / 1e3:9.3f} ms device, "
             f"{e.count} calls")
     for e in kernels:  # the port's own kernels have no aten op
-        for tag in ("apply_sorted_kernel", "trial_propose_kernel", "trial_accept_kernel"):
+        for tag in ("apply_sorted_kernel", "apply_windowed_kernel", "trial_propose_kernel",
+                    "trial_accept_kernel"):
             if tag in e.key:
                 log(f"    {'csrc: ' + tag:40s} {self_device_us(e) / 1e3:9.3f} ms device, "
                     f"{e.count} calls")
@@ -80,8 +84,8 @@ def profiled(fn, label, out):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "profile_port.txt"))
-    ap.add_argument("--sections", default="walks,sgns,hub",
-                    help="comma-separated subset of walks, sgns, hub")
+    ap.add_argument("--sections", default="walks,sgns,hub,precomp",
+                    help="comma-separated subset of walks, sgns, hub, precomp")
     args = ap.parse_args()
     sections = set(args.sections.split(","))
 
@@ -99,7 +103,7 @@ def main():
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
 
     with tempfile.TemporaryDirectory() as tmp, open(args.out, "w") as out:
-        if sections & {"walks", "sgns"}:
+        if sections & {"walks", "sgns", "precomp"}:
             profile_main(tmp, out, sections)
         if "hub" in sections:
             profile_hub(tmp, out)
@@ -109,39 +113,91 @@ def main():
 def profile_main(tmp, out, sections):
     import torch
 
-    from chip_smoke import DIM, MEAN_DEGREE, NODES, WALK_LENGTH, WINDOW, build_bench_graph
+    from chip_smoke import MEAN_DEGREE, NODES, build_bench_graph
     from pecanpy_tpu_torch import pecanpy
-    from pecanpy_tpu_torch.models import sgns
+    from pecanpy_tpu_torch.ops import apply as apply_lib
 
     indptr, indices, data = build_bench_graph(NODES, MEAN_DEGREE)
     path = os.path.join(tmp, "bench_graph.csr.npz")
     np.savez(path, indptr=indptr, indices=indices, data=data)
-    g = pecanpy.SparseOTF(p=0.5, q=2.0, random_state=0, device="cuda")
+    if sections & {"walks", "sgns"}:
+        g = pecanpy.SparseOTF(p=0.5, q=2.0, random_state=0, device="cuda")
+        g.read_npz(path, weighted=True, implicit_ids=True)
+        g.preprocess_transition_probs()
+        walks, eff = profile_walks(g, "walks", out)
+        del g
+        if "sgns" in sections:
+            profile_sgns(walks, eff, "sgns", out)
+        del walks, eff
+        torch.cuda.empty_cache()
+    if "precomp" not in sections:
+        return
+    g = pecanpy.PreComp(p=0.5, q=2.0, random_state=0, device="cuda")
     g.read_npz(path, weighted=True, implicit_ids=True)
+    g.get_device_graph()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     g.preprocess_transition_probs()
-    g.simulate_walks_device(1, 8)  # warm-up
+    torch.cuda.synchronize()
+    log(f"[precomp] edge-CDF build {time.perf_counter() - t0:.4f} s host clock, "
+        f"edge_cdf {tuple(g.edge_cdf.shape)}")
+    walks, eff = profile_walks(g, "precomp walks", out)
+    del g
+    v2 = apply_lib.APPLY_V2
+    apply_lib.APPLY_V2 = True
+    try:
+        run = profile_sgns(walks, eff, "sgns, windowed applier", out)
+        # the two applier routes in turns on the same steps, host clock
+        times = []
+        for flag in (False, True, True, False):
+            apply_lib.APPLY_V2 = flag
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(WARMUP_STEPS, WINDOW_STEPS)
+            torch.cuda.synchronize()
+            times.append(f"{'windowed' if flag else 'kernel 2.1'} "
+                         f"{1e3 * (time.perf_counter() - t0) / WINDOW_STEPS:.4f}")
+        log(f"[sgns routes] ms per chunk-step in turns: {', '.join(times)}")
+    finally:
+        apply_lib.APPLY_V2 = v2
 
+
+def profile_walks(g, label, out):
+    """``simulate_walks_device(1, 80)`` of mode ``g`` after a warm-up."""
+    import torch
+
+    from chip_smoke import NODES, WALK_LENGTH
+
+    g.simulate_walks_device(1, 8)  # warm-up
     result = {}
 
     def walk():
         result["walks"] = g.simulate_walks_device(1, WALK_LENGTH)
 
-    log("[walks] simulate_walks_device(1, 80), top ops by device time:")
-    host_s, busy_s = profiled(walk, "walks", out)
+    log(f"[{label}] simulate_walks_device(1, 80), top ops by device time:")
+    host_s, busy_s = profiled(walk, label, out)
     walks, eff = result["walks"]
     steps = float((eff.to(torch.int64) - 1).sum())
     chunks = -(-NODES // 131_072)
-    log(f"[walks] {host_s:.4f} s host clock: {steps / host_s:.4e} effective "
+    log(f"[{label}] {host_s:.4f} s host clock: {steps / host_s:.4e} effective "
         f"steps/s, {1e3 * host_s / (chunks * WALK_LENGTH):.4f} ms per step "
         f"of {chunks} chunks x {WALK_LENGTH}")
     if busy_s is not None:
-        log(f"[walks] device busy {busy_s:.4f} s under the profiler, "
+        log(f"[{label}] device busy {busy_s:.4f} s under the profiler, "
             f"{1e3 * busy_s / (chunks * WALK_LENGTH):.4f} ms per step: idle "
             f"share {1 - busy_s / host_s:.4f} of the host-clock window")
+    return walks, eff
 
-    if "sgns" not in sections:
-        return
-    # the SGNS step sgns.train runs, set up the way train sets it up
+
+def profile_sgns(walks, eff, label, out):
+    """``WINDOW_STEPS`` chunk-steps of the SGNS step ``sgns.train`` runs,
+    set up the way ``train`` sets it up, on ``walks``. Returns the
+    ``run(first step, count)`` callable it timed."""
+    import torch
+
+    from chip_smoke import DIM, NODES, WINDOW
+    from pecanpy_tpu_torch.models import sgns
+
     config = sgns.SGNSConfig(dim=DIM, window=WINDOW, seed=0)
     counts = sgns._count_tokens(walks, eff, NODES)
     keep_prob = sgns._keep_probs(counts, config.sample)
@@ -164,15 +220,16 @@ def profile_main(tmp, out, sections):
     run(0, WARMUP_STEPS)
     a = WARMUP_STEPS
     tokens = float(eff_host[a * chunk:(a + WINDOW_STEPS) * chunk].sum())
-    log(f"[sgns] {WINDOW_STEPS} chunk-steps of {chunk} walks ({dtype}), "
+    log(f"[{label}] {WINDOW_STEPS} chunk-steps of {chunk} walks ({dtype}), "
         "top ops by device time:")
-    host_s, busy_s = profiled(lambda: run(a, WINDOW_STEPS), "sgns", out)
-    log(f"[sgns] {host_s:.4f} s host clock: {1e3 * host_s / WINDOW_STEPS:.4f} ms "
+    host_s, busy_s = profiled(lambda: run(a, WINDOW_STEPS), label, out)
+    log(f"[{label}] {host_s:.4f} s host clock: {1e3 * host_s / WINDOW_STEPS:.4f} ms "
         f"per chunk-step, {tokens / host_s:.4e} tokens/s")
     if busy_s is not None:
-        log(f"[sgns] device busy {1e3 * busy_s / WINDOW_STEPS:.4f} ms per "
+        log(f"[{label}] device busy {1e3 * busy_s / WINDOW_STEPS:.4f} ms per "
             f"chunk-step under the profiler: idle share "
             f"{1 - busy_s / host_s:.4f} of the host-clock window")
+    return run
 
 
 def profile_hub(tmp, out):

@@ -5,7 +5,11 @@ JAX package takes without Pallas, and they are held against it and a
 numpy loop (rtol=2e-5, atol=1e-6: f32 sums in another order). The
 stream prep + ``apply_sorted_stream`` route, which a CUDA table takes,
 runs here through the kernel's plain version and must equal the scatter
-path at the same tolerance. The CUDA kernel itself is tested on the card
+path at the same tolerance. The windowed applier's plain version (the
+port of the Pallas ``_applier_kernel_v2``) is held against that kernel
+run through the Pallas interpreter (same tolerance), its window plan
+against the JAX driver's formula (exactly), and ``apply_sorted_stream_plain``
+(bit for bit). The CUDA kernels themselves are tested on the card
 (``tests/test_torch_kernels.py``).
 """
 import jax.numpy as jnp
@@ -183,3 +187,129 @@ def test_cpu_wrapper_never_launches(rng):
     apply_lib.apply_sorted_stream(table, torch.tensor([1, 1, 5], dtype=torch.int32), torch.ones(3, 4))
     assert apply_lib.apply_sorted_stream.launches == before
     np.testing.assert_array_equal(table[1].numpy(), [-2.0] * 4)
+
+
+# -- the windowed applier (the port of _applier_kernel_v2) --------------------
+
+
+def _windowed_stream(rng, tile, k, d):
+    """Tile 0 random, tile 1 untouched, tile 2 a hot row of 700 entries
+    (past one window of either plan) plus random rows; R not a multiple
+    of the window."""
+    r = 4 * k + 37
+    ids = np.concatenate([
+        rng.integers(0, tile, r - 785),
+        np.full(700, 2 * tile + 5),
+        rng.integers(2 * tile, 3 * tile, 85),
+    ]).astype(np.int32)
+    return ids, rng.normal(size=(r, d)).astype(np.float32), rng.integers(0, 3, r).astype(np.float32)
+
+
+@pytest.mark.parametrize("streams", ["one", "two"])
+def test_windowed_plain_equals_jax_v2_interpret(streams, rng, monkeypatch):
+    """The windowed plain version, on the port's plan and on the JAX
+    package's (2048-row tiles, 512-row windows), equals the JAX v2 applier
+    run through the Pallas interpreter (rtol=2e-5, atol=1e-6: the one-hot
+    matmul adds in another order); the untouched tile stays bit-equal."""
+    monkeypatch.setattr(japply, "APPLY_V2", True)
+    monkeypatch.setattr(japply, "DOT_BF16", False)  # f32-exact compare
+    tile, k, d = japply.TILE, japply.K_WINDOW, 24
+    n = 3 * tile
+    table = rng.normal(size=(n, d)).astype(np.float32)
+    ids_a, upd_a, cnt_a = _windowed_stream(rng, tile, k, d)
+    j = jnp.asarray
+    if streams == "one":
+        want = japply._pallas_apply_one(
+            j(table), j(ids_a), j(upd_a), j(cnt_a), jnp.float32(0.05), 4.0,
+            jnp.int32(3), interpret=True)
+        ids_s, upd_s = apply_lib.sorted_stream_one(T(ids_a), T(upd_a), T(cnt_a), 0.05, 4.0)
+    else:
+        ids_b, upd_b, cnt_b = _stream(rng, n, d, k + 11)
+        want = japply._pallas_apply_two(
+            j(table), j(ids_a), j(upd_a), j(cnt_a), j(ids_b), j(upd_b), j(cnt_b),
+            jnp.float32(0.05), 4.0, 1.0, jnp.int32(0), interpret=True)
+        ids_s, upd_s = apply_lib.sorted_stream_two(
+            T(ids_a), T(upd_a), T(cnt_a), T(ids_b), T(upd_b), T(cnt_b), 0.05, 4.0, 1.0)
+    want = np.asarray(want)
+    for plan in ({}, dict(tile=tile, window=k)):
+        got = apply_lib.apply_sorted_stream_windowed_plain(
+            T(table.copy()), ids_s, upd_s, **plan).numpy()
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-6)
+        if streams == "one":
+            t1 = slice(tile, 2 * tile)
+            np.testing.assert_array_equal(got[t1], table[t1])
+
+
+def _jax_window_plan(ids, n, tile, k):
+    """``pecanpy_tpu/ops/apply.py``'s windowed plan, as its driver writes
+    it (``_finalize_and_run`` pads, :470-471 searchsorts, :384-387)."""
+    n_pad = -(-n // tile) * tile
+    r_pad = -(-ids.size // k) * k
+    ids_p = jnp.pad(jnp.asarray(ids), (0, r_pad - ids.size), constant_values=n_pad)
+    edges = jnp.arange(n_pad // tile + 1, dtype=jnp.int32) * tile
+    bounds = jnp.searchsorted(ids_p, edges).astype(jnp.int32)
+    lo = bounds[:-1]
+    w0 = lo // k
+    nw = jnp.maximum(-(-(bounds[1:] - w0 * k) // k), 0).astype(jnp.int32)
+    nw = jnp.where(bounds[1:] > lo, nw, 0)
+    return [np.asarray(a) for a in (bounds, w0, nw)]
+
+
+@pytest.mark.parametrize("tile,k", [(64, 32), (2048, 512), (16, 8)])
+def test_window_plan_equals_jax_formula(tile, k, rng):
+    n = 20 * tile + 7  # a ragged last tile
+    for ids in (
+        np.sort(rng.integers(0, n, 40 * k)),
+        np.sort(np.concatenate([rng.integers(0, 3 * tile, 5), np.full(3 * k, 7 * tile)])),
+        np.array([n - 1]),
+    ):
+        ids = ids.astype(np.int32)
+        got = apply_lib.window_plan(T(ids), n, tile, k)
+        for a, b in zip(got, _jax_window_plan(ids, n, tile, k)):
+            assert a.dtype == torch.int32
+            np.testing.assert_array_equal(a.numpy(), b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_plain_bitwise_equals_sorted_plain(dtype, rng):
+    """Same stream order, sums from 0, same rounding hash: the windowed
+    plain version and ``apply_sorted_stream_plain`` agree bit for bit."""
+    n, d = 1000, 13
+    ids, upd, _ = _windowed_stream(rng, 64, 256, d)  # hot row of 700
+    ids_s = T(np.sort(np.concatenate([ids, rng.integers(0, n, 300)])).astype(np.int32))
+    upd = T(rng.normal(size=(ids_s.numel(), d)).astype(np.float32) * 1e-2)
+    table = T(rng.normal(size=(n, d)).astype(np.float32)).to(dtype)
+    want = apply_lib.apply_sorted_stream_plain(table.clone(), ids_s, upd, seed=9)
+    for plan in ({}, dict(tile=16, window=8), dict(tile=2048, window=512)):
+        got = apply_lib.apply_sorted_stream_windowed_plain(table.clone(), ids_s, upd, 9, **plan)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_windowed_plain_drops_out_of_range_ids():
+    table = torch.zeros((100, 4))
+    ids = torch.tensor([-5, -1, 0, 3, 3, 99, 100, 127, 500], dtype=torch.int32)
+    apply_lib.apply_sorted_stream_windowed_plain(table, ids, torch.ones(9, 4))
+    want = torch.zeros((100, 4))
+    want[0], want[3], want[99] = -1.0, -2.0, -1.0
+    assert torch.equal(table, want)
+
+
+@pytest.mark.parametrize("v2", [False, True])
+def test_cpu_tables_never_launch(v2, rng, monkeypatch):
+    """With PECANPY_TPU_APPLY_V2 on or off, a CPU table takes the scatter
+    path and launches no kernel; the windowed wrapper runs its plain
+    version on the CPU."""
+    monkeypatch.setattr(apply_lib, "APPLY_V2", v2)
+    counts = (apply_lib.apply_sorted_stream.launches,
+              apply_lib.apply_sorted_stream_windowed.launches)
+    n, d = 40, 8
+    table = rng.normal(size=(n, d)).astype(np.float32)
+    ids, upd, cnt = _stream(rng, n, d, 90)
+    got = apply_mean_updates(T(table.copy()), T(ids), T(upd), T(cnt), 0.05)
+    apply_mean_updates_two(got, T(ids), T(upd), T(cnt), T(ids), T(upd), T(cnt), 0.05)
+    ids_s, upd_s = apply_lib.sorted_stream_one(T(ids), T(upd), T(cnt), 0.05, 4.0)
+    out = apply_lib.apply_sorted_stream_windowed(T(table.copy()), ids_s, upd_s)
+    want = apply_lib.apply_sorted_stream_plain(T(table.copy()), ids_s, upd_s)
+    assert torch.equal(out, want)
+    assert counts == (apply_lib.apply_sorted_stream.launches,
+                      apply_lib.apply_sorted_stream_windowed.launches)

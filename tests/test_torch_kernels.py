@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain torch versions, on the card.
 
-The table applier (``csrc/apply.cu``) and the two rejection-trial kernels
-(``csrc/trial.cu``); the trial kernels must equal their plain version
+The table applier (``csrc/apply.cu``), its windowed variant
+(``csrc/apply_v2.cu``, which must equal the first bit for bit) and the two
+rejection-trial kernels (``csrc/trial.cu``); the trial kernels must equal
+their plain version
 (``rejection._trial_block``) bit for bit, with the cdf channel on any
 weights and without it on integer weights.
 
@@ -189,6 +191,106 @@ def test_mean_updates_launch_the_kernel(cuda):
         got, ids, upd, cnt, ids[:0], upd[:0], cnt[:0], 0.0
     )
     assert apply_lib.apply_sorted_stream.launches == before + 2
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
+
+
+# -- the windowed applier (csrc/apply_v2.cu) ----------------------------------
+
+
+def _assert_windowed(cuda, table0, ids_s, upd_s, seed):
+    """The windowed kernel: one launch, bit-equal to kernel 2.1 (both sum
+    each row in stream order from 0 and share the rounding hash), within
+    2.1's tolerances of its plain version, untouched rows bit-equal."""
+    before = apply_lib.apply_sorted_stream_windowed.launches
+    got = apply_lib.apply_sorted_stream_windowed(table0.clone(), ids_s, upd_s, seed)
+    launched = apply_lib.apply_sorted_stream_windowed.launches - before
+    assert launched == int(ids_s.numel() > 0)
+    ref = apply_lib.apply_sorted_stream(table0.clone(), ids_s, upd_s, seed)
+    want = apply_lib.apply_sorted_stream_windowed_plain(table0.clone(), ids_s, upd_s, seed)
+    torch.cuda.synchronize()
+    bits = torch.int16 if table0.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), ref.view(bits))
+    n = table0.shape[0]
+    ids = ids_s.long()
+    touched = torch.zeros(n, dtype=torch.bool, device=cuda)
+    touched[ids[(ids >= 0) & (ids < n)]] = True
+    assert torch.equal(got[~touched].view(bits), table0[~touched].view(bits))
+    if table0.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        _assert_bf16_close(got, want, touched)
+    return got
+
+
+@pytest.mark.parametrize("d", [128, 13, 4, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_kernel_matches_2_1_and_plain(cuda, d, dtype):
+    n, r = 5000, 3000  # 60 copies of one id: a segment across windows
+    table0 = (torch.rand(n, d, device=cuda) - 0.5).to(dtype)
+    ids_s, upd_s = _stream(n, d, r, seed=d, device=cuda)
+    _assert_windowed(cuda, table0, ids_s, upd_s, seed=11)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_kernel_hot_row_and_bounds(cuda, dtype):
+    """A hot row of 5,000 entries spanning many windows and starting off a
+    window boundary, neighbours on both sides of tile edges, a tile whose
+    slice is empty, and the table's ragged last tile."""
+    n, d = 64 * 40 + 17, 24
+    gen = np.random.default_rng(5)
+    ids = np.concatenate([
+        gen.integers(0, n, 2000), np.full(5000, 64 * 7 + 63), np.full(31, 64 * 8),
+        [n - 1, n - 1, 64 * 39], np.arange(64 * 12, 64 * 13),
+    ])
+    ids = ids[(ids < 64 * 20) | (ids >= 64 * 21)]  # tile 20 untouched
+    ids_s = torch.from_numpy(np.sort(ids).astype(np.int32)).to(cuda)
+    upd_s = torch.from_numpy(gen.normal(size=(ids.size, d)).astype(np.float32) * 1e-3).to(cuda)
+    table0 = (torch.rand(n, d, device=cuda) - 0.5).to(dtype)
+    got = _assert_windowed(cuda, table0, ids_s, upd_s, seed=2)
+    assert not torch.equal(got[64 * 7 + 63], table0[64 * 7 + 63])
+
+
+def test_windowed_kernel_edge_cases(cuda):
+    """An empty stream, one row, ids outside [0, N) (dropped, never written),
+    and what the wrapper refuses."""
+    table0 = torch.randn(300, 8, device=cuda)
+    empty = torch.empty(0, dtype=torch.int32, device=cuda)
+    _assert_windowed(cuda, table0, empty, torch.empty(0, 8, device=cuda), 0)
+    one = torch.tensor([17], dtype=torch.int32, device=cuda)
+    got = _assert_windowed(cuda, table0, one, torch.ones(1, 8, device=cuda), 0)
+    assert torch.equal(got[17], table0[17] - 1.0)
+    ids = torch.tensor([-7, -1, 0, 299, 300, 319, 320, 10**6], dtype=torch.int32, device=cuda)
+    table = table0.clone()
+    apply_lib.apply_sorted_stream_windowed(table, ids, torch.ones(8, 8, device=cuda))
+    torch.cuda.synchronize()
+    want = table0.clone()
+    want[0] -= 1.0
+    want[299] -= 1.0
+    assert torch.equal(table, want)
+    with pytest.raises(TypeError):
+        apply_lib.apply_sorted_stream_windowed(
+            table, torch.zeros(2, dtype=torch.int64, device=cuda), torch.zeros(2, 8, device=cuda))
+    with pytest.raises(ValueError, match="at most"):
+        apply_lib.apply_sorted_stream_windowed(
+            torch.zeros(4, 1024, device=cuda), one, torch.zeros(1, 1024, device=cuda))
+
+
+def test_mean_updates_route_to_the_windowed_kernel(cuda, monkeypatch):
+    """With APPLY_V2 set, both entry points launch the windowed kernel and
+    never kernel 2.1."""
+    monkeypatch.setattr(apply_lib, "APPLY_V2", True)
+    n, d = 300, 16
+    table = torch.randn(n, d, device=cuda)
+    ids = torch.randint(0, n, (500,), device=cuda, dtype=torch.int32)
+    upd = torch.randn(500, d, device=cuda)
+    cnt = torch.ones(500, device=cuda)
+    want = apply_lib._apply_scatter(table.clone(), ids, upd, cnt, 0.05, 4.0)
+    old = apply_lib.apply_sorted_stream.launches
+    before = apply_lib.apply_sorted_stream_windowed.launches
+    got = apply_lib.apply_mean_updates(table, ids, upd, cnt, 0.05, cap=4.0)
+    apply_lib.apply_mean_updates_two(got, ids, upd, cnt, ids[:0], upd[:0], cnt[:0], 0.0)
+    assert apply_lib.apply_sorted_stream_windowed.launches == before + 2
+    assert apply_lib.apply_sorted_stream.launches == old
     torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
 
 

@@ -36,7 +36,8 @@ def test_port_never_imports_jax():
         "import sys, pecanpy_tpu_torch, pecanpy_tpu_torch.pecanpy, "
         "pecanpy_tpu_torch.cli, pecanpy_tpu_torch.models.sgns, "
         "pecanpy_tpu_torch.models.engine, pecanpy_tpu_torch.ops.hubs, "
-        "pecanpy_tpu_torch.ops.rejection, pecanpy_tpu_torch.ops.trialkernel; "
+        "pecanpy_tpu_torch.ops.rejection, pecanpy_tpu_torch.ops.trialkernel, "
+        "pecanpy_tpu_torch.experimental; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert not any(m == 'pecanpy_tpu' or m.startswith('pecanpy_tpu.') "
         "for m in sys.modules), 'pecanpy_tpu imported'"
@@ -86,8 +87,6 @@ def test_cli_karate_reproducible(tmp_path, karate_edg):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mode", "PreComp"],
-    ["--task", "tocsr"],
     ["--trainer", "sequential"],
     ["--checkpoint-dir", "ck"],
     ["--devices", "2"],
@@ -98,6 +97,48 @@ def test_cli_unported_options_raise(flags, karate_edg, tmp_path):
         cli.main(["--input", karate_edg, "--output", str(tmp_path / "o.emb"),
                   "--dimensions", "4", "--walk-length", "3", "--num-walks", "1",
                   "--p", "0.5", "--device", "cpu", *flags])
+
+
+def _cli(karate_edg, out, *flags):
+    cli.main(["--input", karate_edg, "--output", str(out), "--dimensions", "4",
+              "--walk-length", "3", "--num-walks", "1", "--p", "0.5",
+              "--random_state", "0", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("task", ["PreComp", "tocsr"])
+def test_cli_ported_options_run(task, karate_edg, tmp_path):
+    """``--mode PreComp`` writes one row per karate node; ``--task tocsr``
+    writes a CSR archive that embeds when fed back as ``--input``."""
+    out = tmp_path / "o.emb"
+    if task == "PreComp":
+        _cli(karate_edg, out, "--mode", "PreComp")
+    else:
+        csr = tmp_path / "k.csr.npz"
+        _cli(karate_edg, csr, "--task", "tocsr")
+        assert np.load(csr)["indptr"].size == 35
+        _cli(str(csr), out, "--mode", "SparseOTF")
+    lines = out.read_text().splitlines()
+    assert lines[0] == "34 4" and len(lines) == 35
+
+
+def test_cli_walks_and_todense(karate_edg, tmp_path):
+    """``--task walks`` writes one walk per node and walk, each consecutive
+    pair an edge; ``--task todense`` writes the dense matrix, which the
+    experimental Node2vecPlusPlus reads back."""
+    walks = tmp_path / "k.walks"
+    _cli(karate_edg, walks, "--task", "walks", "--mode", "PreComp", "--num-walks", "2")
+    dense = tmp_path / "k.dense.npz"
+    _cli(karate_edg, dense, "--task", "todense")
+    adj = np.load(dense)["data"]
+    ids = [str(i) for i in np.load(dense)["IDs"]]
+    lines = walks.read_text().splitlines()
+    assert len(lines) == 68
+    for line in lines:
+        nodes = [ids.index(x) for x in line.split()]
+        assert len(nodes) == 4 and all(adj[a, b] != 0 for a, b in zip(nodes, nodes[1:]))
+    out = tmp_path / "pp.emb"
+    _cli(str(dense), out, "--mode", "Node2vecPlusPlus")
+    assert out.read_text().splitlines()[0] == "34 4"
 
 
 def test_native_parser_not_ported(karate_edg):
