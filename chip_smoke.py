@@ -37,8 +37,12 @@ Phases (any failure raises, and the script exits non-zero):
 7. the remaining modes and the windowed applier:
    a. the windowed kernel (``ops/apply.py:apply_sorted_stream_windowed``)
       bit-equal to the applier of phase 3 and within its tolerances of its
-      plain version, on phase 3's streams and one with a hot row of
-      ``HOT_ROW`` entries, f32 and bf16, with times;
+      plain version, on phase 3's streams, one with a hot row of
+      ``HOT_ROW`` entries, one whose hot segment crosses the kernel's
+      first block boundary and one of ``SHORT_ROWS`` rows (fewer than its
+      blocks), f32 and bf16; each timed by CUDA events (median of 20) and
+      by device time under ``torch.profiler`` (mean of 20), beside kernel
+      2.1 and ``index_add_``;
    b. ``PreComp(p=0.5, q=2)`` on phase 4's graph: the per-edge CDF build,
       ``simulate_walks_device(1, 80)`` (every sampled step an edge), and
       ``embed(max_steps=50)`` with ``PECANPY_TPU_APPLY_V2`` on: 2 windowed
@@ -85,6 +89,8 @@ LAW_SIGMAS = 5.0  # per-frequency tolerance of the second-order law check
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 SECTOR = 32  # bytes: the least the memory system moves for one gather
 HOT_ROW = 5_000  # entries of one id in phase 7a's hot-row stream
+BOUNDARY_ROW = 2_000  # entries of the id that crosses 7a's first block boundary
+SHORT_ROWS = 100  # rows of 7a's stream that is shorter than the windowed grid
 PRECOMP_LAW_WIDTH = 8  # PreComp table width on phase 7c's 40-node law graph
 
 
@@ -854,9 +860,34 @@ def make_hot_stream(r, n, d, seed):
     return ids_s, (torch.randn(r, d, device="cuda") * 1e-3).contiguous()
 
 
+def make_boundary_stream(r, n, d, grid, seed):
+    """Random sorted ids with a hot segment of ``BOUNDARY_ROW`` rows that
+    starts in the windowed kernel's block 0 and runs across the first block
+    boundary ``r // grid`` into the ranges of the next blocks."""
+    import torch
+
+    gen = np.random.default_rng(seed)
+    ids = np.sort(gen.integers(0, n, r))
+    a = max(r // grid - BOUNDARY_ROW // 4, 0)
+    ids[a:a + BOUNDARY_ROW] = ids[a]
+    ids_s = torch.from_numpy(ids.astype(np.int32)).cuda()
+    return ids_s, (torch.randn(r, d, device="cuda") * 1e-3).contiguous()
+
+
+def make_short_stream(r, n, d, seed):
+    """``r`` random sorted ids, fewer than the windowed kernel's blocks."""
+    import torch
+
+    gen = np.random.default_rng(seed)
+    ids_s = torch.from_numpy(np.sort(gen.integers(0, n, r)).astype(np.int32)).cuda()
+    return ids_s, (torch.randn(r, d, device="cuda") * 1e-3).contiguous()
+
+
 def phase_windowed():
     """7a: the windowed kernel against kernel 2.1 (bit for bit) and its
-    plain version, on phase 3's streams and a hot-row stream, and times."""
+    plain version, on phase 3's streams, a hot-row stream, a stream whose
+    hot segment crosses the kernel's first block boundary and one shorter
+    than its grid; times by CUDA events and by device time."""
     import torch
 
     from pecanpy_tpu_torch.ops import apply as apply_lib
@@ -867,12 +898,17 @@ def phase_windowed():
     base = (torch.rand(n, d, device="cuda") - 0.5) / d
     streams = {"R=%d" % r: make_stream(r, n, d, seed=r) for r in (r_in, r_out)}
     streams["hot"] = make_hot_stream(r_in, n, d, seed=7)
+    streams["R=%d" % SHORT_ROWS] = make_short_stream(SHORT_ROWS, n, d, seed=11)
     results, max_err = {}, 0.0
     for dtype in (torch.float32, torch.bfloat16):
         table0 = base.to(dtype)
         name = str(dtype).replace("torch.", "")
         bits = torch.int32 if dtype == torch.float32 else torch.int16
-        for label, (ids_s, upd_s) in streams.items():
+        grid = apply_lib.windowed_grid(table0, streams["hot"][1])
+        if grid <= SHORT_ROWS:
+            raise AssertionError(f"grid {grid}: the short stream has more rows than blocks")
+        per_dtype = dict(streams, boundary=make_boundary_stream(r_in, n, d, grid, seed=13))
+        for label, (ids_s, upd_s) in per_dtype.items():
             seed = 777
             t_w = apply_lib.apply_sorted_stream_windowed(table0.clone(), ids_s, upd_s, seed)
             t_21 = apply_lib.apply_sorted_stream(table0.clone(), ids_s, upd_s, seed)
@@ -885,28 +921,34 @@ def phase_windowed():
             err, check, touched = compare_with_plain(f"windowed {name} {label}", t_w, t_p,
                                                      table0, ids_s)
             max_err = max(max_err, err)
-            if label == "hot":
-                log(f"[7a windowed] {name} hot row ({HOT_ROW} entries, R={ids_s.numel()}): "
-                    f"bit-equal to kernel 2.1; max_abs_err vs plain {err:.3e} ({check})")
-                continue
+            del t_w, t_21, t_p
             table = table0.clone()
-            ms = cuda_median_ms(
-                lambda: apply_lib.apply_sorted_stream_windowed(table, ids_s, upd_s, seed))
+            ids_l, upd_l = ids_s.long(), upd_s.to(dtype)
+            calls = {
+                "windowed": lambda: apply_lib.apply_sorted_stream_windowed(
+                    table, ids_s, upd_s, seed),
+                "2.1": lambda: apply_lib.apply_sorted_stream(table, ids_s, upd_s, seed),
+                "index_add_": lambda: table.index_add_(0, ids_l, upd_l, alpha=-1),
+            }
+            ev = {k: cuda_median_ms(fn) for k, fn in calls.items()}
+            dev = {k: device_ms(fn) for k, fn in calls.items()}
             plain_ms = cuda_median_ms(
                 lambda: apply_lib.apply_sorted_stream_windowed_plain(table, ids_s, upd_s, seed))
-            ids_l, upd_l = ids_s.long(), upd_s.to(dtype)
-            library_ms = cuda_median_ms(lambda: table.index_add_(0, ids_l, upd_l, alpha=-1))
             n_touched = int(touched.sum())
             nbytes = ids_s.numel() * 4 + upd_s.numel() * 4 + 2 * n_touched * d * table.element_size()
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            log(f"[7a windowed] {name} {label}: bit-equal to kernel 2.1; max_abs_err vs "
-                f"plain {err:.3e} ({check}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"index_add_ {library_ms:.4f} ms; {n_touched} touched rows, "
-                f"{nbytes / 1e6:.2f} MB moved at least: bound {bound_ms:.4f} ms")
-            results[(name, ids_s.numel())] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                                  bound_ms=bound_ms)
+            log(f"[7a windowed] {name} {label} (R={ids_s.numel()}, grid {grid}): bit-equal to "
+                f"kernel 2.1; max_abs_err vs plain {err:.3e} ({check}); CUDA events: "
+                f"windowed {ev['windowed']:.4f} ms, 2.1 {ev['2.1']:.4f} ms, index_add_ "
+                f"{ev['index_add_']:.4f} ms, plain {plain_ms:.4f} ms; device: windowed "
+                f"{dev['windowed']:.4f} ms, 2.1 {dev['2.1']:.4f} ms, index_add_ "
+                f"{dev['index_add_']:.4f} ms; {n_touched} touched rows, {nbytes / 1e6:.2f} MB "
+                f"moved at least: bound {bound_ms:.4f} ms")
+            results[(name, label)] = dict(ms=ev["windowed"], device_ms=dev["windowed"],
+                                          plain_ms=plain_ms, library_ms=ev["index_add_"],
+                                          bound_ms=bound_ms)
             del table, ids_l, upd_l
-        del t_w, t_21, t_p, table0
+        del table0, per_dtype
     del base, streams
     torch.cuda.empty_cache()
     return results, max_err
@@ -1190,7 +1232,7 @@ def main():
         ("trial_accept", "trial.cu", "trialkernel.py:166",
          hub_launches["trial_accept"], dict(hub_results["trial_accept"], library_ms=None)),
         ("apply_sorted_stream_windowed", "apply_v2.cu", "apply.py:296", win_launches,
-         dict(win_results[("bfloat16", r_out)], max_abs_err=win_err)),
+         dict(win_results[("bfloat16", f"R={r_out}")], max_abs_err=win_err)),
     ]
     kernels = {"kernels": [{
         "name": name,

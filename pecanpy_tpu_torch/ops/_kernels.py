@@ -90,11 +90,12 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [
             ptr, ptr, ptr,  # table, ids, upd
-            ptr, ptr, ptr,  # bounds, w0, nw (the window plan)
             i64, i64, i32,  # R, N, D
             ctypes.c_uint, ptr,  # seed, stream
         ]
         fn.restype = ctypes.c_int
+    lib.pecanpy_apply_windowed_grid.argtypes = [ptr, ptr, i32, i32]  # table, upd, D, bf16
+    lib.pecanpy_apply_windowed_grid.restype = ctypes.c_int
     lib.pecanpy_trial_propose.argtypes = [
         ptr, i64, i32, i32,  # rows, stride, dpad, cdf_off
         ptr, i64, ptr, ptr,  # edge_pack, n_slots, kk, u

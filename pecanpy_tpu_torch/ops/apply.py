@@ -17,9 +17,11 @@ On a CUDA table the update runs in two parts, as in the JAX package:
    names. bf16 tables accumulate in f32 and write back with stochastic
    rounding. With ``PECANPY_TPU_APPLY_V2=1`` (``APPLY_V2``) the update
    runs ``apply_sorted_stream_windowed`` instead (``csrc/apply_v2.cu``,
-   the port of ``_applier_kernel_v2``): the same function, one block per
-   32-row table tile walking its slice of the stream in 16-row windows,
-   and bit-equal to the first kernel.
+   the port of ``_applier_kernel_v2``): the same function, bit-equal to
+   the first kernel, from persistent blocks that each take a balanced
+   range of the stream (``windowed_partition``), find their own first
+   and last rows in the kernel, and stream them in 16-row windows
+   through a four-stage ring in shared memory.
 
 On a CPU table ``apply_mean_updates`` / ``apply_mean_updates_two`` take
 the scatter path, the same one the JAX package takes without Pallas
@@ -131,19 +133,45 @@ def stochastic_round_bf16(
 # -- the kernel and its plain version --------------------------------------
 
 
+def _ordered_index_add(out, idx, values):
+    """``out.index_add_(0, idx, values)``, adding the values of each row in
+    the order given: one pass per occurrence rank, so no pass adds two
+    values to one row. The f32 sums are then the kernels' to the bit,
+    where a single CUDA ``index_add_`` adds a row's values with atomics in
+    no fixed order."""
+    n = idx.numel()
+    if n == 0:
+        return out
+    order = torch.argsort(idx, stable=True)
+    srt = idx[order]
+    pos = torch.arange(n, device=idx.device)
+    head = torch.ones(n, dtype=torch.bool, device=idx.device)
+    head[1:] = srt[1:] != srt[:-1]
+    first = torch.cummax(torch.where(head, pos, 0), 0).values
+    rank = torch.empty_like(pos)
+    rank[order] = pos - first
+    by_rank = torch.argsort(rank, stable=True)
+    off = 0
+    for count in torch.bincount(rank).tolist():
+        sel = by_rank[off:off + count]
+        out.index_add_(0, idx[sel], values[sel])
+        off += count
+    return out
+
+
 def apply_sorted_stream_plain(
     table: torch.Tensor, ids_s: torch.Tensor, upd_s: torch.Tensor, seed: int = 0
 ) -> torch.Tensor:
     """Plain torch version of ``apply_sorted_stream`` (same contract).
 
-    Per touched row the f32 sum of its rows, taken from 0 as the kernel
-    takes it, subtracted in f32; bf16 tables write back with the kernel's
-    stochastic rounding bits.
+    Per touched row the f32 sum of its rows, taken from 0 in stream order
+    as the kernel takes it, subtracted in f32; bf16 tables write back with
+    the kernel's stochastic rounding bits.
     """
     uniq, inv = torch.unique_consecutive(ids_s.long(), return_inverse=True)
     sums = torch.zeros(
-        (uniq.numel(), table.shape[1]), dtype=torch.float32, device=table.device
-    ).index_add_(0, inv, upd_s.to(torch.float32))
+        (uniq.numel(), table.shape[1]), dtype=torch.float32, device=table.device)
+    _ordered_index_add(sums, inv, upd_s.to(torch.float32))
     return _write_rows(table, uniq, sums, seed)
 
 
@@ -233,13 +261,15 @@ def _check_cuda_stream(table, ids_s, upd_s, what):
 
 # -- the windowed kernel and its plain version -----------------------------
 
-# Table rows per tile and stream rows per window of the windowed kernel
-# (``csrc/apply_v2.cu`` fixes the same two constants; its header says why).
+# Table rows per tile and stream rows per window of the plain version's
+# plan (the JAX package's, at Hopper-sized tiles). The kernel has no tiles;
+# its windows are WINDOW_ROWS stream rows (``csrc/apply_v2.cu``: kWin).
 WINDOW_TILE = 32
 WINDOW_ROWS = 16
-# widest row the kernel's shared memory holds: a [TILE, D] f32 accumulator
-# plus two [ROWS, D] f32 windows within the 227 KB a block may use
-MAX_WINDOWED_DIM = 896
+# widest row the kernel's shared memory holds: four f32 payload windows,
+# four windows of table rows and a carry row within the 227 KB a block may
+# use (``csrc/apply_v2.cu``: kMaxDim)
+MAX_WINDOWED_DIM = 448
 
 
 def window_plan(ids_s: torch.Tensor, num_rows: int, tile: int = WINDOW_TILE,
@@ -262,6 +292,45 @@ def window_plan(ids_s: torch.Tensor, num_rows: int, tile: int = WINDOW_TILE,
     nw = torch.clamp(-torch.div(w0 * window - hi, window, rounding_mode="floor"), min=0)
     nw = torch.where(hi > lo, nw, 0).to(torch.int32)
     return bounds, w0, nw
+
+
+def windowed_partition(ids_s: torch.Tensor, grid: int):
+    """The stream rows each block of the windowed kernel owns.
+
+    The rule ``csrc/apply_v2.cu`` computes in the kernel, written out for
+    the tests (the CUDA route does not call it): block b takes the range
+    ``[b R // grid, (b + 1) R // grid)`` of the sorted stream; a segment
+    (the rows of one id) belongs to the block whose range holds its first
+    row, which finishes it past its range's end; segments of ids < 0
+    belong to no block. Segments of ids >= N are owned but never
+    written. Returns int64 (start [grid], end [grid]): block b folds the rows
+    ``[start[b], end[b])``, empty where start == end.
+    """
+    ids = ids_s.to(torch.int64)
+    r = ids.numel()
+    s = torch.arange(grid + 1, dtype=torch.int64, device=ids.device) * r // grid
+    lo, hi = s[:-1], s[1:]
+    if r == 0:
+        return lo, lo.clone()
+    prev = torch.where(lo > 0, ids[torch.clamp(lo - 1, min=0)], -1)
+    start = torch.searchsorted(ids, torch.clamp(prev, min=-1), right=True)
+    last = ids[torch.clamp(hi - 1, min=0)]
+    end = torch.where(hi < r, torch.searchsorted(ids, last, right=True), r)
+    owns = (lo < hi) & (start < hi)
+    start = torch.where(owns, start, lo)
+    return start, torch.where(owns, end, lo)
+
+
+def windowed_grid(table: torch.Tensor, upd_s: torch.Tensor) -> int:
+    """The number of blocks a windowed launch on these CUDA tensors uses
+    (SMs times resident blocks, as the launcher computes it)."""
+    lib = _kernels.load()
+    grid = lib.pecanpy_apply_windowed_grid(
+        table.data_ptr(), upd_s.data_ptr(), table.shape[1],
+        int(table.dtype == torch.bfloat16))
+    if grid <= 0:
+        _kernels.check(lib, -grid, "windowed_grid")
+    return grid
 
 
 def apply_sorted_stream_windowed_plain(
@@ -296,7 +365,7 @@ def apply_sorted_stream_windowed_plain(
     # stream order, and every kept row lands in exactly one visit
     slot = (tiles[:, None] * tile + local)[ok]
     acc = torch.zeros((nw.numel() * tile, d), dtype=torch.float32, device=dev)
-    acc.index_add_(0, slot, upd_s.to(torch.float32)[rows[ok]])
+    _ordered_index_add(acc, slot, upd_s.to(torch.float32)[rows[ok]])
     named = torch.unique_consecutive(ids[ok])
     return _write_rows(table, named, acc[named], seed)
 
@@ -308,8 +377,9 @@ def apply_sorted_stream_windowed(
 
     The same contract and result as ``apply_sorted_stream``, through the
     windowed kernel of ``csrc/apply_v2.cu`` (the port of the Pallas
-    ``_applier_kernel_v2``), which the wrapper feeds the ``window_plan``
-    of the stream. Ids outside [0, N) are dropped. A CUDA table launches
+    ``_applier_kernel_v2``), which computes its own partition of the
+    stream (``windowed_partition``). Ids outside [0, N) are dropped.
+    Rows of at most ``MAX_WINDOWED_DIM`` elements. A CUDA table launches
     the kernel on the current stream (counted in
     ``apply_sorted_stream_windowed.launches``) or raises; a CPU table runs
     ``apply_sorted_stream_windowed_plain``.
@@ -324,7 +394,6 @@ def apply_sorted_stream_windowed(
         )
     if ids_s.shape[0] == 0:
         return table
-    bounds, w0, nw = window_plan(ids_s, table.shape[0])
     lib = _kernels.load()
     fn = (
         lib.pecanpy_apply_windowed_bf16
@@ -333,9 +402,8 @@ def apply_sorted_stream_windowed(
     )
     stream = torch.cuda.current_stream(table.device).cuda_stream
     code = fn(
-        table.data_ptr(), ids_s.data_ptr(), upd_s.data_ptr(), bounds.data_ptr(),
-        w0.data_ptr(), nw.data_ptr(), ids_s.shape[0], table.shape[0],
-        table.shape[1], seed & _MASK32, stream,
+        table.data_ptr(), ids_s.data_ptr(), upd_s.data_ptr(), ids_s.shape[0],
+        table.shape[0], table.shape[1], seed & _MASK32, stream,
     )
     _kernels.check(lib, code, "apply_sorted_stream_windowed")
     apply_sorted_stream_windowed.launches += 1

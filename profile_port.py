@@ -2,7 +2,7 @@
 """Where the PyTorch port's time goes, on one NVIDIA GPU.
 
     python3 profile_port.py [--out chiprun_out/profile_port.txt]
-                            [--sections walks,sgns,hub,precomp]
+                            [--sections walks,sgns,hub,precomp,apply]
 
 Runs the configurations of ``chip_smoke.py`` (p=0.5, q=2, walks of 80
 steps) and measures these steady-state windows:
@@ -19,7 +19,11 @@ steps) and measures these steady-state windows:
   262,144 walks of 80 steps on 32,768 lanes, reported per round;
 - precomp: on the main path's graph, the PreComp edge-CDF build (host
   clock), its ``simulate_walks_device(1, 80)``, and the SGNS window on
-  those walks with the windowed applier (``PECANPY_TPU_APPLY_V2``).
+  those walks with the windowed applier (``PECANPY_TPU_APPLY_V2``);
+- apply: no graph; ``chip_smoke.py``'s phase-3 streams into a [1M, 128]
+  table, f32 and bf16: both appliers and ``index_add_`` by device time
+  and by CUDA events beside the bound, and the windowed wrapper's host
+  time split into its checks and the rest (the launch). Under a minute.
 
 Each window is timed twice: on the host clock with a synchronize at each
 end (ms per step, rate), and under ``torch.profiler`` (device time by
@@ -85,7 +89,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "profile_port.txt"))
     ap.add_argument("--sections", default="walks,sgns,hub,precomp",
-                    help="comma-separated subset of walks, sgns, hub, precomp")
+                    help="comma-separated subset of walks, sgns, hub, precomp, apply")
     args = ap.parse_args()
     sections = set(args.sections.split(","))
 
@@ -103,6 +107,8 @@ def main():
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
 
     with tempfile.TemporaryDirectory() as tmp, open(args.out, "w") as out:
+        if "apply" in sections:
+            profile_apply()
         if sections & {"walks", "sgns", "precomp"}:
             profile_main(tmp, out, sections)
         if "hub" in sections:
@@ -230,6 +236,58 @@ def profile_sgns(walks, eff, label, out):
             f"chunk-step under the profiler: idle share "
             f"{1 - busy_s / host_s:.4f} of the host-clock window")
     return run
+
+
+def profile_apply(host_calls=200):
+    """Both appliers and ``index_add_`` on phase 3's streams of
+    ``chip_smoke.py``, and the windowed wrapper's host time per call."""
+    import torch
+
+    from chip_smoke import (DIM, HBM_BYTES_PER_S, NEG_POOL, NODES, WALK_LENGTH,
+                            cuda_median_ms, device_ms, make_stream)
+    from pecanpy_tpu_torch.ops import apply as apply_lib
+
+    n, d = NODES, DIM
+    r_in = 1235 * (WALK_LENGTH + 1)
+    base = (torch.rand(n, d, device="cuda") - 0.5) / d
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        table = base.to(dtype)
+        for r in (r_in, r_in + NEG_POOL):
+            ids_s, upd_s = make_stream(r, n, d, seed=r)
+            ids_l, upd_l = ids_s.long(), upd_s.to(dtype)
+            calls = {
+                "windowed": lambda: apply_lib.apply_sorted_stream_windowed(table, ids_s, upd_s, 1),
+                "2.1": lambda: apply_lib.apply_sorted_stream(table, ids_s, upd_s, 1),
+                "index_add_": lambda: table.index_add_(0, ids_l, upd_l, alpha=-1),
+            }
+            touched = int(torch.unique_consecutive(ids_s).numel())
+            nbytes = r * 4 + r * d * 4 + 2 * touched * d * table.element_size()
+            times = ", ".join(f"{k} {device_ms(fn):.4f} / {cuda_median_ms(fn):.4f}"
+                              for k, fn in calls.items())
+            log(f"[apply] {name} R={r}: ms device / CUDA events: {times}; bound "
+                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes / 1e6:.2f} MB)")
+            # host time of one wrapper call: the checks alone, then the whole
+            # call (the launches queue; the device catches up afterwards)
+            host = {}
+            for label, fn in (
+                ("checks", lambda: apply_lib._check_cuda_stream(
+                    table, ids_s, upd_s, "apply_sorted_stream_windowed")),
+                ("call", calls["windowed"]),
+            ):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(host_calls):
+                    fn()
+                host[label] = 1e3 * (time.perf_counter() - t0) / host_calls
+                torch.cuda.synchronize()
+            log(f"[apply] {name} R={r}: windowed wrapper host time {host['call']:.4f} ms "
+                f"per call: checks {host['checks']:.4f} ms, launch and the rest "
+                f"{host['call'] - host['checks']:.4f} ms")
+            del ids_s, upd_s, ids_l, upd_l
+        del table
+    del base
+    torch.cuda.empty_cache()
 
 
 def profile_hub(tmp, out):

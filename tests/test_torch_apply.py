@@ -313,3 +313,47 @@ def test_cpu_tables_never_launch(v2, rng, monkeypatch):
     assert torch.equal(out, want)
     assert counts == (apply_lib.apply_sorted_stream.launches,
                       apply_lib.apply_sorted_stream_windowed.launches)
+
+
+def _owned_rows_loop(ids, grid):
+    """Each block's owned rows by a plain loop over segment heads: a head
+    with an id >= 0 belongs to the block whose range ``[b R // grid,
+    (b + 1) R // grid)`` holds it, and brings its whole segment along."""
+    r = ids.size
+    owner = np.full(r, -1)
+    head = 0
+    while head < r:
+        end = head
+        while end < r and ids[end] == ids[head]:
+            end += 1
+        if ids[head] >= 0:
+            owner[head:end] = next(b for b in range(grid) if b * r // grid <= head < (b + 1) * r // grid)
+        head = end
+    return owner
+
+
+@pytest.mark.parametrize("kind", ["random", "hot", "out_of_range", "one_row", "short"])
+def test_windowed_partition_owns_each_row_once(kind, rng):
+    """The windowed kernel's partition rule (``windowed_partition``): every
+    row of a segment with an id >= 0 lies in exactly one block's range,
+    the same block for the whole segment, the one that holds its head;
+    rows of ids < 0 in none."""
+    n, r = 500, 3000
+    ids = np.sort(rng.integers(0, n, r))
+    if kind == "hot":
+        ids[700:2600] = ids[700]
+    elif kind == "out_of_range":
+        ids = np.sort(np.concatenate([rng.integers(-40, 0, 900), ids[:1200], np.full(900, n + 3)]))
+    elif kind == "one_row":
+        ids[:] = 17
+    elif kind == "short":
+        ids = ids[:40]
+    for grid in (1, 7, 132, 5000):
+        start, end = apply_lib.windowed_partition(T(ids.astype(np.int32)), grid)
+        assert start.shape == end.shape == (grid,)
+        owner = np.full(ids.size, -1)
+        for b, (lo, hi) in enumerate(zip(start.tolist(), end.tolist())):
+            assert lo <= hi
+            assert (owner[lo:hi] == -1).all()  # no row in two blocks
+            owner[lo:hi] = b
+        np.testing.assert_array_equal(owner, _owned_rows_loop(ids, grid))

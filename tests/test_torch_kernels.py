@@ -59,6 +59,8 @@ def _ulps(a, b):
 
 
 def _assert_bf16_close(got, want, touched):
+    if not bool(touched.any()):
+        return
     ulps = _ulps(got[touched], want[touched])
     assert int(ulps.max()) <= 1
     assert int((ulps > 0).sum()) <= BF16_MISMATCH_SHARE * ulps.numel()
@@ -273,6 +275,90 @@ def test_windowed_kernel_edge_cases(cuda):
     with pytest.raises(ValueError, match="at most"):
         apply_lib.apply_sorted_stream_windowed(
             torch.zeros(4, 1024, device=cuda), one, torch.zeros(1, 1024, device=cuda))
+
+
+def _random_stream(n, r, seed):
+    gen = np.random.default_rng(seed)
+    return np.sort(gen.integers(0, n, r)), gen
+
+
+def _windowed_case(cuda, ids, d, dtype, gen, upd_s=None):
+    ids_s = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    if upd_s is None:
+        upd_s = torch.from_numpy(gen.normal(size=(ids.size, d)).astype(np.float32) * 1e-3).to(cuda)
+    n = 5000
+    table0 = (torch.rand(n, d, device=cuda) - 0.5).to(dtype)
+    return _assert_windowed(cuda, table0, ids_s, upd_s, seed=13)
+
+
+def _block_starts(cuda, d, dtype, r):
+    """The first stream row of each block's range, as the launcher splits
+    R rows over its grid."""
+    grid = apply_lib.windowed_grid(torch.empty(1, d, device=cuda, dtype=dtype),
+                                   torch.empty(1, d, device=cuda))
+    return [b * r // grid for b in range(grid + 1)]
+
+
+@pytest.mark.parametrize("blocks", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_kernel_segment_across_blocks(cuda, blocks, dtype):
+    """One segment that starts inside block 0's range and runs into the
+    ranges of ``blocks - 1`` more blocks: its owner finishes it, and the
+    blocks whose ranges it covers skip it."""
+    d, r = 24, 60_000
+    s = _block_starts(cuda, d, dtype, r)
+    assert s[2] - s[1] >= 16  # ranges wider than a window
+    ids, gen = _random_stream(5000, r, blocks)
+    a, b = s[1] - 7, s[blocks - 1] + 9
+    ids[a:b] = ids[a]  # still sorted
+    _windowed_case(cuda, ids, d, dtype, gen)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_kernel_fewer_rows_than_blocks(cuda, dtype):
+    r = 100
+    assert len(_block_starts(cuda, 8, dtype, r)) - 1 > r
+    ids, gen = _random_stream(5000, r, 3)
+    ids[40:47] = ids[40]
+    _windowed_case(cuda, ids, 8, dtype, gen)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_kernel_one_table_row(cuda, dtype):
+    """Every id names one row: block 0 owns the whole stream."""
+    ids = np.full(20_000, 4321)
+    got = _windowed_case(cuda, ids, 16, dtype, np.random.default_rng(4))
+    assert int(got.shape[0]) == 5000
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_kernel_only_out_of_range_ids(cuda, dtype):
+    """Every id < 0 or >= N: nothing is written."""
+    ids = np.sort(np.concatenate([np.full(3000, -4), np.arange(-900, 0), np.full(2000, 5000),
+                                  np.arange(5001, 9000)]))
+    _windowed_case(cuda, ids, 16, dtype, np.random.default_rng(5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_kernel_widest_row(cuda, dtype):
+    """D = MAX_WINDOWED_DIM: the shared-memory ceiling of the kernel's ring
+    (four columns a thread)."""
+    ids, gen = _random_stream(5000, 6000, 6)
+    ids[100:400] = ids[100]
+    _windowed_case(cuda, ids, apply_lib.MAX_WINDOWED_DIM, dtype, gen)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_kernel_unaligned_payload(cuda, dtype):
+    """A contiguous payload view 4 bytes off 16-byte alignment: the kernel
+    takes its 4-byte copies."""
+    d, r = 128, 7000
+    ids, gen = _random_stream(5000, r, 7)
+    ids[10:90] = ids[10]
+    buf = torch.from_numpy(gen.normal(size=r * d + 1).astype(np.float32) * 1e-3).to(cuda)
+    upd_s = buf[1:].view(r, d)
+    assert upd_s.is_contiguous() and upd_s.data_ptr() % 16 != 0
+    _windowed_case(cuda, ids, d, dtype, gen, upd_s=upd_s)
 
 
 def test_mean_updates_route_to_the_windowed_kernel(cuda, monkeypatch):
