@@ -11,7 +11,8 @@ Phases (any failure raises, and the script exits non-zero):
    ``build/`` and prints the seconds it took;
 3. kernel vs plain: the table applier (``ops/apply.py:apply_sorted_stream``)
    against its plain torch version on a [1M, 128] table at the SGNS
-   stream sizes, f32 and bf16, with both times (CUDA events, median of 20);
+   stream sizes, f32 and bf16, to the bit, with both times (CUDA events,
+   median of 20);
 4. main path at full width: the 1M-node, mean-degree-16 weighted graph of
    ``bench.py``, read from a ``.csr.npz``, walked (p=0.5, q=2), then
    ``embed(dim=128, num_walks=1, walk_length=80, max_steps=50)`` with
@@ -33,10 +34,15 @@ Phases (any failure raises, and the script exits non-zero):
    d. ``generate_walks_amortized`` on 32,768 starts;
    e. the second-order law on the card, both engines, undirected and
       directed: empirical transition frequencies against the exact law;
-   f. ``embed(dim=128, num_walks=1, walk_length=80, max_steps=50)``;
+   f. ``embed(dim=128, num_walks=1, walk_length=80, max_steps=50)``; its
+      last W_in and W_out streams: their longest segments, the segments
+      longer than kernel 2.1's short pass takes, and kernel 2.1 on them
+      (to the bit its plain version) beside the windowed kernel and
+      ``index_add_`` by device time;
 7. the remaining modes and the windowed applier:
    a. the windowed kernel (``ops/apply.py:apply_sorted_stream_windowed``)
-      bit-equal to the applier of phase 3 and within its tolerances of its
+      bit-equal to the applier of phase 3, that one bit-equal to its plain
+      version, and the windowed kernel within its tolerances of its own
       plain version, on phase 3's streams, one with a hot row of
       ``HOT_ROW`` entries, one whose hot segment crosses the kernel's
       first block boundary and one of ``SHORT_ROWS`` rows (fewer than its
@@ -217,6 +223,16 @@ def bf16_ulps(a, b):
     return (ordered(a) - ordered(b)).abs()
 
 
+def assert_bit_equal(label, got, want):
+    """Raise unless two tables of one type agree to the bit."""
+    import torch
+
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    n_diff = int((got.view(bits) != want.view(bits)).sum())
+    if n_diff:
+        raise AssertionError(f"{label}: {n_diff} of {got.numel()} elements differ")
+
+
 def phase_device():
     import torch
 
@@ -312,6 +328,7 @@ def phase_kernel_vs_plain():
             t_p = apply_lib.apply_sorted_stream_plain(table0.clone(), ids_s, upd_s, seed)
             torch.cuda.synchronize()
             err, check, touched = compare_with_plain(f"{dtype} R={r}", t_k, t_p, table0, ids_s)
+            assert_bit_equal(f"kernel 2.1 {dtype} R={r} against its plain version", t_k, t_p)
             table = table0.clone()
             ms = cuda_median_ms(
                 lambda: apply_lib.apply_sorted_stream(table, ids_s, upd_s, seed))
@@ -327,8 +344,8 @@ def phase_kernel_vs_plain():
             nbytes = r * 4 + r * d * 4 + 2 * n_touched * d * table.element_size()
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
             name = str(dtype).replace("torch.", "")
-            log(f"[3 kernel] {name} R={r}: max_abs_err {err:.3e} ({check}), "
-                f"untouched rows bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            log(f"[3 kernel] {name} R={r}: bit-equal to plain, max_abs_err {err:.3e} "
+                f"({check}), untouched rows bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"index_add_ {library_ms:.4f} ms; {n_touched} touched rows, "
                 f"{nbytes / 1e6:.2f} MB moved at least: bound {bound_ms:.4f} ms")
             results[(name, r)] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
@@ -821,11 +838,28 @@ def phase_hub_path(tmp):
 
     # -- f. embed on the hub graph: the hub path's main path --------------
     config = sgns.SGNSConfig(dim=DIM, window=WINDOW, seed=0)
-    apply_lib.apply_sorted_stream.launches = 0
-    trialkernel.trial_propose.launches = trialkernel.trial_accept.launches = 0
-    emb = g.embed(dim=DIM, num_walks=1, walk_length=WALK_LENGTH,
-                  window_size=WINDOW, max_steps=MAX_STEPS)
-    torch.cuda.synchronize()
+    # keep the last W_in and W_out streams that reach the applier: each
+    # chunk-step updates W_in, then W_out
+    streams, route = [], apply_lib._cuda_applier
+
+    def recording_route(table):
+        applier = route(table)
+
+        def record(table, ids_s, upd_s, seed):
+            streams.append((ids_s, upd_s, seed))
+            del streams[:-2]
+            return applier(table, ids_s, upd_s, seed)
+        return record
+
+    apply_lib._cuda_applier = recording_route
+    try:
+        apply_lib.apply_sorted_stream.launches = 0
+        trialkernel.trial_propose.launches = trialkernel.trial_accept.launches = 0
+        emb = g.embed(dim=DIM, num_walks=1, walk_length=WALK_LENGTH,
+                      window_size=WINDOW, max_steps=MAX_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        apply_lib._cuda_applier = route
     launches = {
         "apply_sorted_stream": apply_lib.apply_sorted_stream.launches,
         "trial_propose": trialkernel.trial_propose.launches,
@@ -845,8 +879,52 @@ def phase_hub_path(tmp):
         raise AssertionError("embeddings equal their initialization")
     log(f"[6f embed] embeddings {emb.shape} {emb.dtype}, finite; {moved} rows moved")
     del g, dg
+    hub_streams(dict(zip(("W_in", "W_out"), streams)), dtype)
     torch.cuda.empty_cache()
     return results, launches
+
+
+def hub_streams(streams, dtype):
+    """6f: the segments of the hub path's last SGNS streams, and kernel 2.1
+    on them (to the bit its plain version) beside ``index_add_``."""
+    import torch
+
+    from pecanpy_tpu_torch.ops import apply as apply_lib
+
+    if sorted(streams) != ["W_in", "W_out"]:
+        raise AssertionError(f"streams recorded: {sorted(streams)}")
+    big = apply_lib.long_segment_rows()
+    table0 = ((torch.rand(NODES, DIM, device="cuda") - 0.5) / DIM).to(dtype)
+    for label, (ids_s, upd_s, seed) in streams.items():
+        counts = torch.unique_consecutive(ids_s, return_counts=True)[1]
+        long_ = counts[counts > big]
+        t_k = apply_lib.apply_sorted_stream(table0.clone(), ids_s, upd_s, seed)
+        t_p = apply_lib.apply_sorted_stream_plain(table0.clone(), ids_s, upd_s, seed)
+        torch.cuda.synchronize()
+        assert_bit_equal(f"kernel 2.1 on the hub path's {label} stream", t_k, t_p)
+        del t_k, t_p
+        table = table0.clone()
+        ids_l, upd_l = ids_s.long(), upd_s.to(dtype)
+        dev = {k: device_ms(fn) for k, fn in {
+            "2.1": lambda: apply_lib.apply_sorted_stream(table, ids_s, upd_s, seed),
+            "windowed": lambda: apply_lib.apply_sorted_stream_windowed(table, ids_s, upd_s, seed),
+            "index_add_": lambda: table.index_add_(0, ids_l, upd_l, alpha=-1),
+        }.items()}
+        log(f"[6f streams] {label} (R={ids_s.numel()}, {counts.numel()} segments): longest "
+            f"segment {int(counts.max())} rows; {long_.numel()} segments of more than "
+            f"{big} rows, holding {int(long_.sum())} rows; kernel 2.1 bit-equal to plain; "
+            f"device time {str(dtype).replace('torch.', '')}: 2.1 {dev['2.1']:.4f} ms, windowed {dev['windowed']:.4f} ms, "
+            f"index_add_ {dev['index_add_']:.4f} ms")
+        del table, ids_l, upd_l
+    del table0
+    torch.cuda.empty_cache()
+
+
+def longest_segment(ids_s) -> int:
+    """Rows of the longest run of one id in a sorted stream."""
+    import torch
+
+    return int(torch.unique_consecutive(ids_s, return_counts=True)[1].max())
 
 
 def make_hot_stream(r, n, d, seed):
@@ -913,15 +991,15 @@ def phase_windowed():
             t_w = apply_lib.apply_sorted_stream_windowed(table0.clone(), ids_s, upd_s, seed)
             t_21 = apply_lib.apply_sorted_stream(table0.clone(), ids_s, upd_s, seed)
             t_p = apply_lib.apply_sorted_stream_windowed_plain(table0.clone(), ids_s, upd_s, seed)
+            t_21p = apply_lib.apply_sorted_stream_plain(table0.clone(), ids_s, upd_s, seed)
             torch.cuda.synchronize()
-            if not torch.equal(t_w.view(bits), t_21.view(bits)):
-                n_diff = int((t_w.view(bits) != t_21.view(bits)).sum())
-                raise AssertionError(f"windowed {name} {label}: {n_diff} elements differ "
-                                     "from kernel 2.1")
+            assert_bit_equal(f"windowed {name} {label} against kernel 2.1", t_w, t_21)
+            # kernel 2.1's long pass sums the hot and boundary segments
+            assert_bit_equal(f"kernel 2.1 {name} {label} against its plain version", t_21, t_21p)
             err, check, touched = compare_with_plain(f"windowed {name} {label}", t_w, t_p,
                                                      table0, ids_s)
             max_err = max(max_err, err)
-            del t_w, t_21, t_p
+            del t_w, t_21, t_p, t_21p
             table = table0.clone()
             ids_l, upd_l = ids_s.long(), upd_s.to(dtype)
             calls = {
@@ -937,13 +1015,17 @@ def phase_windowed():
             n_touched = int(touched.sum())
             nbytes = ids_s.numel() * 4 + upd_s.numel() * 4 + 2 * n_touched * d * table.element_size()
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            log(f"[7a windowed] {name} {label} (R={ids_s.numel()}, grid {grid}): bit-equal to "
-                f"kernel 2.1; max_abs_err vs plain {err:.3e} ({check}); CUDA events: "
+            log(f"[7a windowed] {name} {label} (R={ids_s.numel()}, grid {grid}, longest "
+                f"segment {longest_segment(ids_s)}): bit-equal to kernel 2.1, and 2.1 to its "
+                f"plain version; max_abs_err vs plain {err:.3e} ({check}); CUDA events: "
                 f"windowed {ev['windowed']:.4f} ms, 2.1 {ev['2.1']:.4f} ms, index_add_ "
                 f"{ev['index_add_']:.4f} ms, plain {plain_ms:.4f} ms; device: windowed "
                 f"{dev['windowed']:.4f} ms, 2.1 {dev['2.1']:.4f} ms, index_add_ "
                 f"{dev['index_add_']:.4f} ms; {n_touched} touched rows, {nbytes / 1e6:.2f} MB "
                 f"moved at least: bound {bound_ms:.4f} ms")
+            log(f"[7a windowed] {name} {label}: kernel 2.1 device time "
+                f"{'below' if dev['2.1'] < dev['index_add_'] else 'NOT below'} index_add_'s "
+                f"({dev['2.1']:.4f} against {dev['index_add_']:.4f} ms)")
             results[(name, label)] = dict(ms=ev["windowed"], device_ms=dev["windowed"],
                                           plain_ms=plain_ms, library_ms=ev["index_add_"],
                                           bound_ms=bound_ms)

@@ -6,6 +6,8 @@ loaded with ctypes. The build runs at first use, never at import, into
 ``build/`` beside the package (a directory git ignores); the library's
 file name carries a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is reused. A failed build raises.
+``build`` also takes another source directory, so a measurement script
+can build a variant of the sources beside the package's own.
 """
 import ctypes
 import functools
@@ -37,55 +39,64 @@ def _nvcc() -> str:
     )
 
 
-def _sources():
-    return sorted(CSRC_DIR.glob("*.cu"))
+def build(csrc_dir: Path = CSRC_DIR, build_dir: Path = BUILD_DIR) -> Path:
+    """Build the library from ``csrc_dir``'s sources into ``build_dir``,
+    unless a build of the same sources and flags is there; returns its
+    path."""
+    sources = sorted(csrc_dir.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources + sorted(csrc_dir.glob("*.cuh")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    lib_path = build_dir / f"libpecanpy_kernels_{digest.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        return lib_path
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [build_dir / f"{src.stem}.{tag}.o" for src in sources]
+    nvcc = _nvcc()
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in cmds]
+    outs = [proc.communicate() for proc in procs]
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    for cmd, proc, (_, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n{err}")
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel link failed ({' '.join(cmd)}):\n{proc.stderr}")
+    os.replace(tmp, lib_path)
+    return lib_path
 
 
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
-    sources = _sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources + sorted(CSRC_DIR.glob("*.cuh")):
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    lib_path = BUILD_DIR / f"libpecanpy_kernels_{digest.hexdigest()[:16]}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
-        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
-        nvcc = _nvcc()
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                for src, obj in zip(sources, objs)]
-        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                  text=True) for cmd in cmds]
-        outs = [proc.communicate() for proc in procs]
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        for cmd, proc, (_, err) in zip(cmds, procs, outs):
-            if proc.returncode != 0:
-                raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n{err}")
-        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        for obj in objs:
-            obj.unlink()
-        if proc.returncode != 0:
-            raise RuntimeError(f"kernel link failed ({' '.join(cmd)}):\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    return bind(ctypes.CDLL(str(build())))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument and result types on ``lib``."""
+    ptr, i64, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     for name in ("pecanpy_apply_sorted_f32", "pecanpy_apply_sorted_bf16"):
         fn = getattr(lib, name)
         fn.argtypes = [
-            ctypes.c_void_p,  # table
-            ctypes.c_void_p,  # ids
-            ctypes.c_void_p,  # upd
-            ctypes.c_longlong,  # R
-            ctypes.c_longlong,  # N
-            ctypes.c_int,  # D
+            ptr, ptr, ptr,  # table, ids, upd
+            i64, i64, i32,  # R, N, D
             ctypes.c_uint,  # seed
-            ctypes.c_void_p,  # stream
+            ptr, i64,  # scratch, its length in long longs
+            ptr,  # stream
         ]
         fn.restype = ctypes.c_int
-    ptr, i64, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    lib.pecanpy_apply_sorted_scratch.argtypes = [i64]  # R
+    lib.pecanpy_apply_sorted_scratch.restype = i64
+    lib.pecanpy_apply_long_rows.argtypes = []
+    lib.pecanpy_apply_long_rows.restype = i32
     for name in ("pecanpy_apply_windowed_f32", "pecanpy_apply_windowed_bf16"):
         fn = getattr(lib, name)
         fn.argtypes = [

@@ -14,14 +14,19 @@ On a CUDA table the update runs in two parts, as in the JAX package:
 2. ``apply_sorted_stream``: the hand-written CUDA kernel
    (``csrc/apply.cu``, the port of the Pallas ``_applier_kernel``),
    which updates the table IN PLACE, touching only the rows the stream
-   names. bf16 tables accumulate in f32 and write back with stochastic
-   rounding. With ``PECANPY_TPU_APPLY_V2=1`` (``APPLY_V2``) the update
-   runs ``apply_sorted_stream_windowed`` instead (``csrc/apply_v2.cu``,
-   the port of ``_applier_kernel_v2``): the same function, bit-equal to
-   the first kernel, from persistent blocks that each take a balanced
-   range of the stream (``windowed_partition``), find their own first
-   and last rows in the kernel, and stream them in 16-row windows
-   through a four-stage ring in shared memory.
+   names: a warp per segment of at most ``long_segment_rows()`` rows,
+   then a second pass that splits each longer segment's columns into
+   slabs streamed through shared memory. bf16 tables accumulate in f32
+   and write back with stochastic rounding. With
+   ``PECANPY_TPU_APPLY_V2=1`` (``APPLY_V2``) the update runs
+   ``apply_sorted_stream_windowed`` instead (``csrc/apply_v2.cu``, the
+   port of ``_applier_kernel_v2``), for rows of at most
+   ``MAX_WINDOWED_DIM`` elements (wider ones stay on the first kernel,
+   ``_cuda_applier``): the same function, bit-equal to the first kernel,
+   from persistent blocks that each take a balanced range of the stream
+   (``windowed_partition``), find their own first and last rows in the
+   kernel, and stream them in 16-row windows through a four-stage ring
+   in shared memory.
 
 On a CPU table ``apply_mean_updates`` / ``apply_mean_updates_two`` take
 the scatter path, the same one the JAX package takes without Pallas
@@ -196,14 +201,15 @@ def apply_sorted_stream(
         seed: stochastic-rounding seed (bf16 tables only).
 
     Rows no id names are neither read nor written. A CUDA table runs the
-    CUDA kernel of ``csrc/apply.cu`` on the current stream (and counts
-    the launch in ``apply_sorted_stream.launches``) or raises; a CPU
-    table runs ``apply_sorted_stream_plain``.
+    CUDA kernel of ``csrc/apply.cu`` on the current stream (its short and
+    long passes, counted as one launch in ``apply_sorted_stream.launches``)
+    or raises; a CPU table runs ``apply_sorted_stream_plain``.
     """
     if table.device.type == "cpu":
         return apply_sorted_stream_plain(table, ids_s, upd_s, seed)
     _check_cuda_stream(table, ids_s, upd_s, "apply_sorted_stream")
-    if ids_s.shape[0] == 0:
+    r = ids_s.shape[0]
+    if r == 0:
         return table
     lib = _kernels.load()
     fn = (
@@ -212,9 +218,11 @@ def apply_sorted_stream(
         else lib.pecanpy_apply_sorted_f32
     )
     stream = torch.cuda.current_stream(table.device).cuda_stream
+    scratch = _long_pass_scratch(table.device, stream, lib.pecanpy_apply_sorted_scratch(r))
     code = fn(
-        table.data_ptr(), ids_s.data_ptr(), upd_s.data_ptr(), ids_s.shape[0],
-        table.shape[0], table.shape[1], seed & _MASK32, stream,
+        table.data_ptr(), ids_s.data_ptr(), upd_s.data_ptr(), r,
+        table.shape[0], table.shape[1], seed & _MASK32,
+        scratch.data_ptr(), scratch.numel(), stream,
     )
     _kernels.check(lib, code, "apply_sorted_stream")
     apply_sorted_stream.launches += 1
@@ -222,6 +230,28 @@ def apply_sorted_stream(
 
 
 apply_sorted_stream.launches = 0
+
+# the long pass's list of segments, one buffer per (device, stream): a
+# launch on one stream never shares it with a launch on another
+_SCRATCH = {}
+
+
+def _long_pass_scratch(device, stream, need):
+    """An int64 device buffer of at least ``need`` elements (and at least
+    one), reused across calls on ``stream``."""
+    key = (device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.empty(max(need, 1), dtype=torch.int64, device=device)
+        _SCRATCH[key] = buf
+    return buf
+
+
+def long_segment_rows() -> int:
+    """The most rows of a segment that kernel 2.1's short pass sums; longer
+    segments take its long pass (``csrc/apply.cu``: kLongRows). Builds
+    the kernels: CUDA only."""
+    return _kernels.load().pecanpy_apply_long_rows()
 
 
 def _check_cuda_stream(table, ids_s, upd_s, what):
@@ -379,7 +409,9 @@ def apply_sorted_stream_windowed(
     windowed kernel of ``csrc/apply_v2.cu`` (the port of the Pallas
     ``_applier_kernel_v2``), which computes its own partition of the
     stream (``windowed_partition``). Ids outside [0, N) are dropped.
-    Rows of at most ``MAX_WINDOWED_DIM`` elements. A CUDA table launches
+    Rows of at most ``MAX_WINDOWED_DIM`` elements: a wider CUDA table
+    raises here (the entry points under ``APPLY_V2`` send it to
+    ``apply_sorted_stream``, ``_cuda_applier``). A CUDA table launches
     the kernel on the current stream (counted in
     ``apply_sorted_stream_windowed.launches``) or raises; a CPU table runs
     ``apply_sorted_stream_windowed_plain``.
@@ -415,14 +447,23 @@ apply_sorted_stream_windowed.launches = 0
 
 # -- stream prep and the public entry points -------------------------------
 
-# PECANPY_TPU_APPLY_V2=1 sends every CUDA table update through the windowed
-# kernel (read at import, as the JAX package reads it; the entry points
-# read this attribute at call time, so it can be set afterwards).
+# PECANPY_TPU_APPLY_V2=1 sends every CUDA table update with rows of at most
+# MAX_WINDOWED_DIM elements through the windowed kernel (read at import, as
+# the JAX package reads it; the entry points read this attribute at call
+# time, so it can be set afterwards).
 APPLY_V2 = os.environ.get("PECANPY_TPU_APPLY_V2", "0") == "1"
 
 
-def _cuda_applier():
-    return apply_sorted_stream_windowed if APPLY_V2 else apply_sorted_stream
+def _cuda_applier(table: torch.Tensor):
+    """The kernel a CUDA table's update runs: kernel 2.1
+    (``apply_sorted_stream``) by default; under ``APPLY_V2`` the windowed
+    kernel, unless the table's rows are wider than ``MAX_WINDOWED_DIM``:
+    those take kernel 2.1, which has no width limit and is bit-equal to
+    the windowed kernel (the JAX package pads such rows instead; the
+    function is the same)."""
+    if APPLY_V2 and table.shape[1] <= MAX_WINDOWED_DIM:
+        return apply_sorted_stream_windowed
+    return apply_sorted_stream
 
 
 def sorted_stream_one(ids, upd, cnt, lr, cap: Cap):
@@ -468,7 +509,7 @@ def apply_mean_updates(
     if ids.shape[0] == 0:
         return table
     ids_s, upd_s = sorted_stream_one(ids, upd, cnt, lr, cap)
-    return _cuda_applier()(table, ids_s, upd_s, rng_seed)
+    return _cuda_applier(table)(table, ids_s, upd_s, rng_seed)
 
 
 def apply_mean_updates_two(
@@ -500,4 +541,4 @@ def apply_mean_updates_two(
     ids_s, upd_s = sorted_stream_two(
         ids_a, upd_a, cnt_a, ids_b, upd_b, cnt_b, lr, cap_a, cap_b
     )
-    return _cuda_applier()(table, ids_s, upd_s, rng_seed)
+    return _cuda_applier(table)(table, ids_s, upd_s, rng_seed)

@@ -2,7 +2,7 @@
 """Where the PyTorch port's time goes, on one NVIDIA GPU.
 
     python3 profile_port.py [--out chiprun_out/profile_port.txt]
-                            [--sections walks,sgns,hub,precomp,apply]
+                            [--sections walks,sgns,hub,precomp,apply,apply-sweep]
 
 Runs the configurations of ``chip_smoke.py`` (p=0.5, q=2, walks of 80
 steps) and measures these steady-state windows:
@@ -20,10 +20,14 @@ steps) and measures these steady-state windows:
 - precomp: on the main path's graph, the PreComp edge-CDF build (host
   clock), its ``simulate_walks_device(1, 80)``, and the SGNS window on
   those walks with the windowed applier (``PECANPY_TPU_APPLY_V2``);
-- apply: no graph; ``chip_smoke.py``'s phase-3 streams into a [1M, 128]
-  table, f32 and bf16: both appliers and ``index_add_`` by device time
-  and by CUDA events beside the bound, and the windowed wrapper's host
-  time split into its checks and the rest (the launch). Under a minute.
+- apply: no graph; ``chip_smoke.py``'s applier streams (phase 3's W_in
+  and W_out, phase 7a's hot-row and block-boundary ones) into a
+  [1M, 128] table, f32 and bf16: both appliers and ``index_add_`` by
+  device time and by CUDA events beside the bound, and the wrappers'
+  host time with the share of their checks. Under a minute;
+- apply-sweep: no graph; kernel 2.1 built with other values of its
+  constants (``APPLY_SWEEP``) against the committed build on the same
+  streams, by device time, in turns.
 
 Each window is timed twice: on the host clock with a synchronize at each
 end (ms per step, rate), and under ``torch.profiler`` (device time by
@@ -89,7 +93,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "profile_port.txt"))
     ap.add_argument("--sections", default="walks,sgns,hub,precomp",
-                    help="comma-separated subset of walks, sgns, hub, precomp, apply")
+                    help="comma-separated subset of walks, sgns, hub, precomp, apply, "
+                         "apply-sweep")
+    ap.add_argument("--apply-lib", help="with --sections apply-lib: time kernel 2.1 "
+                    "from this build of the library (the sweep's own processes)")
     args = ap.parse_args()
     sections = set(args.sections.split(","))
 
@@ -109,6 +116,10 @@ def main():
     with tempfile.TemporaryDirectory() as tmp, open(args.out, "w") as out:
         if "apply" in sections:
             profile_apply()
+        if "apply-sweep" in sections:
+            sweep_apply()
+        if "apply-lib" in sections:
+            time_apply_lib(args.apply_lib)
         if sections & {"walks", "sgns", "precomp"}:
             profile_main(tmp, out, sections)
         if "hub" in sections:
@@ -238,23 +249,36 @@ def profile_sgns(walks, eff, label, out):
     return run
 
 
+def apply_streams(n, d, grid):
+    """``chip_smoke.py``'s applier streams into an [n, d] table: phase 3's
+    W_in and W_out streams and phase 7a's hot-row and block-boundary ones
+    (``grid``: the windowed kernel's blocks)."""
+    from chip_smoke import (NEG_POOL, WALK_LENGTH, make_boundary_stream, make_hot_stream,
+                            make_stream)
+
+    r_in = 1235 * (WALK_LENGTH + 1)
+    streams = {f"R={r}": make_stream(r, n, d, seed=r) for r in (r_in, r_in + NEG_POOL)}
+    streams["hot"] = make_hot_stream(r_in, n, d, seed=7)
+    streams["boundary"] = make_boundary_stream(r_in, n, d, grid, seed=13)
+    return streams
+
+
 def profile_apply(host_calls=200):
-    """Both appliers and ``index_add_`` on phase 3's streams of
+    """Both appliers and ``index_add_`` on the applier streams of
     ``chip_smoke.py``, and the windowed wrapper's host time per call."""
     import torch
 
-    from chip_smoke import (DIM, HBM_BYTES_PER_S, NEG_POOL, NODES, WALK_LENGTH,
-                            cuda_median_ms, device_ms, make_stream)
+    from chip_smoke import DIM, HBM_BYTES_PER_S, NODES, cuda_median_ms, device_ms
     from pecanpy_tpu_torch.ops import apply as apply_lib
 
     n, d = NODES, DIM
-    r_in = 1235 * (WALK_LENGTH + 1)
     base = (torch.rand(n, d, device="cuda") - 0.5) / d
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         table = base.to(dtype)
-        for r in (r_in, r_in + NEG_POOL):
-            ids_s, upd_s = make_stream(r, n, d, seed=r)
+        grid = apply_lib.windowed_grid(table, base)
+        for label, (ids_s, upd_s) in apply_streams(n, d, grid).items():
+            r = ids_s.numel()
             ids_l, upd_l = ids_s.long(), upd_s.to(dtype)
             calls = {
                 "windowed": lambda: apply_lib.apply_sorted_stream_windowed(table, ids_s, upd_s, 1),
@@ -265,29 +289,115 @@ def profile_apply(host_calls=200):
             nbytes = r * 4 + r * d * 4 + 2 * touched * d * table.element_size()
             times = ", ".join(f"{k} {device_ms(fn):.4f} / {cuda_median_ms(fn):.4f}"
                               for k, fn in calls.items())
-            log(f"[apply] {name} R={r}: ms device / CUDA events: {times}; bound "
+            log(f"[apply] {name} {label} (R={r}): ms device / CUDA events: {times}; bound "
                 f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes / 1e6:.2f} MB)")
+            if not label.startswith("R="):
+                continue
             # host time of one wrapper call: the checks alone, then the whole
             # call (the launches queue; the device catches up afterwards)
             host = {}
-            for label, fn in (
+            for what, fn in (
                 ("checks", lambda: apply_lib._check_cuda_stream(
                     table, ids_s, upd_s, "apply_sorted_stream_windowed")),
-                ("call", calls["windowed"]),
+                ("windowed", calls["windowed"]),
+                ("2.1", calls["2.1"]),
             ):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 for _ in range(host_calls):
                     fn()
-                host[label] = 1e3 * (time.perf_counter() - t0) / host_calls
+                host[what] = 1e3 * (time.perf_counter() - t0) / host_calls
                 torch.cuda.synchronize()
-            log(f"[apply] {name} R={r}: windowed wrapper host time {host['call']:.4f} ms "
-                f"per call: checks {host['checks']:.4f} ms, launch and the rest "
-                f"{host['call'] - host['checks']:.4f} ms")
+            log(f"[apply] {name} {label}: wrapper host time per call: windowed "
+                f"{host['windowed']:.4f} ms, 2.1 {host['2.1']:.4f} ms; the checks "
+                f"{host['checks']:.4f} ms of each")
             del ids_s, upd_s, ids_l, upd_l
         del table
     del base
     torch.cuda.empty_cache()
+
+
+# kernel 2.1's constants in csrc/apply.cu, and the variants the sweep builds:
+# (kLongRows, kSlab, kStageRows, kStages)
+APPLY_CONSTANTS = ("kLongRows", "kSlab", "kStageRows", "kStages")
+APPLY_SWEEP = [
+    (32, 32, 16, 8), (32, 32, 16, 16), (32, 16, 64, 12), (32, 8, 64, 12), (32, 8, 128, 12),
+    (32, 4, 64, 12), (32, 4, 128, 12), (32, 4, 512, 4), (32, 4, 256, 12),
+    (16, 4, 256, 8), (64, 4, 256, 8), (128, 4, 256, 8),
+]
+
+
+def sweep_apply(variants=APPLY_SWEEP):
+    """Kernel 2.1 built with other values of its constants (a copy of
+    ``csrc/`` with them replaced, built in parallel into ``build/sweep``),
+    each timed in a process of its own (``--apply-lib``) after the
+    committed build and before it again."""
+    import re
+    import shutil
+    import subprocess
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    from pecanpy_tpu_torch.ops import _kernels
+
+    source = (_kernels.CSRC_DIR / "apply.cu").read_text()
+    pattern = r"constexpr int {} = (\d+);"
+    committed = tuple(int(re.search(pattern.format(k), source).group(1))
+                      for k in APPLY_CONSTANTS)
+    with tempfile.TemporaryDirectory() as tmp:
+        def build(values):
+            src = Path(tmp) / "_".join(map(str, values))
+            shutil.copytree(_kernels.CSRC_DIR, src)
+            text = source
+            for key, value in zip(APPLY_CONSTANTS, values):
+                text = re.sub(pattern.format(key), f"constexpr int {key} = {value};", text)
+            (src / "apply.cu").write_text(text)
+            return _kernels.build(src, _kernels.BUILD_DIR / "sweep")
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(variants) + 1) as pool:
+            paths = list(pool.map(build, [committed, *variants]))
+    log(f"[sweep] {len(variants)} variants of csrc/apply.cu built in "
+        f"{time.perf_counter() - t0:.1f} s; constants {APPLY_CONSTANTS}")
+    runs = [(committed, paths[0]), *zip(variants, paths[1:]), (committed, paths[0])]
+    for values, path in runs:
+        log(f"[sweep] {dict(zip(APPLY_CONSTANTS, values))}"
+            f"{' (committed)' if values == committed else ''}:")
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--sections", "apply-lib",
+                        "--apply-lib", str(path)], check=True)
+
+
+def time_apply_lib(path):
+    """Kernel 2.1 from the library at ``path`` on the applier streams, by
+    device time, each stream to the bit the plain version."""
+    import ctypes
+
+    import torch
+
+    from chip_smoke import DIM, NODES, assert_bit_equal, device_ms
+    from pecanpy_tpu_torch.ops import _kernels
+    from pecanpy_tpu_torch.ops import apply as apply_lib
+
+    lib = _kernels.bind(ctypes.CDLL(path))
+    _kernels.load = lambda: lib
+    n, d = NODES, DIM
+    base = (torch.rand(n, d, device="cuda") - 0.5) / d
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        table0 = base.to(dtype)
+        grid = apply_lib.windowed_grid(table0, base)
+        times = []
+        for label, (ids_s, upd_s) in apply_streams(n, d, grid).items():
+            want = apply_lib.apply_sorted_stream_plain(table0.clone(), ids_s, upd_s, 1)
+            got = apply_lib.apply_sorted_stream(table0.clone(), ids_s, upd_s, 1)
+            assert_bit_equal(f"{name} {label}", got, want)
+            del got, want
+            table = table0.clone()
+            ms = device_ms(lambda: apply_lib.apply_sorted_stream(table, ids_s, upd_s, 1))
+            times.append(f"{label} {ms:.4f}")
+            del table
+        log(f"[sweep]   {name}, device ms (bit-equal to plain): {', '.join(times)}")
 
 
 def profile_hub(tmp, out):

@@ -315,6 +315,21 @@ def test_cpu_tables_never_launch(v2, rng, monkeypatch):
                       apply_lib.apply_sorted_stream_windowed.launches)
 
 
+@pytest.mark.parametrize("v2,d,windowed", [
+    (False, 128, False), (False, 512, False), (True, 128, True), (True, 448, True),
+    (True, 449, False), (True, 512, False),
+])
+def test_cuda_applier_routes_wide_rows_to_kernel_2_1(v2, d, windowed, monkeypatch):
+    """Under PECANPY_TPU_APPLY_V2 a table takes the windowed kernel up to
+    MAX_WINDOWED_DIM columns and kernel 2.1 (no width limit, bit-equal)
+    above it; without the flag always kernel 2.1."""
+    monkeypatch.setattr(apply_lib, "APPLY_V2", v2)
+    assert apply_lib.MAX_WINDOWED_DIM == 448
+    want = (apply_lib.apply_sorted_stream_windowed if windowed
+            else apply_lib.apply_sorted_stream)
+    assert apply_lib._cuda_applier(torch.empty(0, d)) is want
+
+
 def _owned_rows_loop(ids, grid):
     """Each block's owned rows by a plain loop over segment heads: a head
     with an id >= 0 belongs to the block whose range ``[b R // grid,

@@ -19,7 +19,10 @@ bits, so they agree bit for bit except where the two f32 sums straddle a
 rounding boundary; at most ``BF16_MISMATCH_SHARE`` of the touched
 elements may differ, each by at most 1 ulp. A kernel that truncated,
 rounded to nearest, or hashed another (seed, row, col) would differ in
-about half of them. Rows no id names stay bit-equal.
+about half of them. Rows no id names stay bit-equal. The ``long_pass``
+tests hold kernel 2.1 to its plain version bit for bit, f32 and bf16:
+both add each row's payload in stream order from 0, so the f32 sums and
+the rounding bits are the same.
 """
 import numpy as np
 import pytest
@@ -142,8 +145,9 @@ def test_kernel_edge_cases(cuda):
             table, torch.zeros(2, dtype=torch.int32, device=cuda),
             torch.zeros(8, 2, device=cuda).T,  # [2, 8], not contiguous
         )
-    # a whole stream of one id: one segment, one warp; 2^-10 payloads keep
-    # every partial sum exact, so only the final subtraction rounds
+    # a whole stream of one id: one segment, summed by the long pass;
+    # 2^-10 payloads keep every partial sum exact, so only the final
+    # subtraction rounds
     ids = torch.full((5000,), 7, dtype=torch.int32, device=cuda)
     upd = torch.full((5000, 8), 2.0**-10, device=cuda)
     apply_lib.apply_sorted_stream(table, ids, upd)
@@ -154,8 +158,8 @@ def test_kernel_edge_cases(cuda):
 @pytest.mark.parametrize("d", [8, 13])
 @pytest.mark.parametrize("sign", ["positive", "mixed"])
 def test_kernel_long_segment_accuracy(cuda, d, sign):
-    """One warp sums a segment serially in f32, so the error grows with the
-    segment's length n. Held to the serial-summation bound against a
+    """The kernel sums each column of a segment serially in f32 (the long
+    pass, here), so the error grows with the segment's length n. Held to the serial-summation bound against a
     float64 sum: |err| <= gamma(n - 1) sum|x| plus the final subtraction's
     rounding, with gamma(k) = k u / (1 - k u) and u = 2^-24 the f32 unit
     roundoff."""
@@ -194,6 +198,157 @@ def test_mean_updates_launch_the_kernel(cuda):
     )
     assert apply_lib.apply_sorted_stream.launches == before + 2
     torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
+
+
+# -- kernel 2.1's long pass (csrc/apply.cu) -----------------------------------
+
+
+def _assert_2_1_bitwise(cuda, table0, ids_s, upd_s, seed=9):
+    """Kernel 2.1: one counted launch, to the bit the plain version's on the
+    stream's rows with ids in [0, N) (the kernel drops the others),
+    untouched rows bit-equal."""
+    n = table0.shape[0]
+    before = apply_lib.apply_sorted_stream.launches
+    got = apply_lib.apply_sorted_stream(table0.clone(), ids_s, upd_s, seed)
+    assert apply_lib.apply_sorted_stream.launches == before + 1
+    keep = (ids_s >= 0) & (ids_s < n)
+    want = apply_lib.apply_sorted_stream_plain(
+        table0.clone(), ids_s[keep].contiguous(), upd_s[keep].contiguous(), seed)
+    torch.cuda.synchronize()
+    bits = torch.int16 if table0.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+    touched = torch.zeros(n, dtype=torch.bool, device=cuda)
+    touched[ids_s[keep].long()] = True
+    assert torch.equal(got[~touched].view(bits), table0[~touched].view(bits))
+    return got
+
+
+def _long_case(cuda, ids, d, dtype, seed, n=5000, upd_s=None):
+    """Kernel 2.1 on the sorted ids ``ids`` into a random [n, d] table."""
+    gen = np.random.default_rng(seed)
+    ids_s = torch.from_numpy(np.asarray(ids, dtype=np.int32)).to(cuda)
+    if upd_s is None:
+        upd_s = torch.from_numpy(
+            gen.normal(size=(ids_s.numel(), d)).astype(np.float32) * 1e-3).to(cuda)
+    table0 = (torch.rand(n, d, device=cuda) - 0.5).to(dtype)
+    return _assert_2_1_bitwise(cuda, table0, ids_s, upd_s)
+
+
+def _with_segment(r, length, seed, n=5000):
+    """``r`` sorted ids in [0, n): ``length`` rows of the id n // 3 and
+    random ids, none of them n // 3, around them."""
+    v = n // 3
+    ids = np.random.default_rng(seed).integers(0, n, r - length)
+    ids[ids == v] = v + 1
+    return np.sort(np.concatenate([ids, np.full(length, v)]))
+
+
+@pytest.mark.parametrize("length", ["L", "L+1", "2000"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_long_pass_segment_lengths(cuda, length, dtype):
+    """A segment of L rows is the short pass's, one of L + 1 the long
+    pass's; both, and a 2,000-row one, to the bit the plain version's."""
+    big = apply_lib.long_segment_rows()
+    rows = {"L": big, "L+1": big + 1, "2000": 2000}[length]
+    _long_case(cuda, _with_segment(6000, rows, seed=rows), 128, dtype, seed=rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_long_pass_several_segments(cuda, dtype):
+    """Several long segments with short ones between them, in three slabs
+    of 32 columns."""
+    big = apply_lib.long_segment_rows()
+    gen = np.random.default_rng(21)
+    heads = np.array([500, 1500, 2500, 3500, 4500])
+    short = gen.integers(0, 5000, 3000)
+    short = short[~np.isin(short, heads)]
+    long_ = [np.full(rows, v) for v, rows in zip(heads, [big + 1, 40, 300, 1000, 2 * big + 3])]
+    _long_case(cuda, np.sort(np.concatenate([short, *long_])), 96, dtype, seed=21)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_long_pass_out_of_range_segments(cuda, dtype):
+    """Long segments of ids < 0 and >= N are dropped in both passes."""
+    big = apply_lib.long_segment_rows()
+    gen = np.random.default_rng(22)
+    ids = np.sort(np.concatenate([
+        np.full(3 * big, -3), np.full(big + 1, -1), gen.integers(0, 5000, 3000),
+        np.full(500, 77), np.full(big + 1, 5000), np.full(2000, 5007)]))
+    _long_case(cuda, ids, 64, dtype, seed=22)
+
+
+@pytest.mark.parametrize("length", ["L+1", "600"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_long_pass_segment_ends_at_r(cuda, length, dtype):
+    """The stream's last segment is long; at L + 1 rows its head is the
+    last row before R - L."""
+    big = apply_lib.long_segment_rows()
+    rows = {"L+1": big + 1, "600": 600}[length]
+    r = 4000
+    ids = np.sort(np.random.default_rng(23).integers(0, 4000, r))
+    ids[r - rows:] = 4999
+    _long_case(cuda, ids, 128, dtype, seed=23)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_long_pass_whole_stream_one_id(cuda, dtype):
+    _long_case(cuda, np.full(5000, 1234), 64, dtype, seed=24)
+
+
+@pytest.mark.parametrize("d", [512, 100, 36])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_long_pass_widths(cuda, d, dtype):
+    """D = 512 (16 slabs) and widths that are not a multiple of the slab."""
+    ids = _with_segment(7000, 900, seed=d)
+    ids[5000:5100] = ids[5000]
+    _long_case(cuda, ids, d, dtype, seed=d)
+
+
+@pytest.mark.parametrize("kind", ["d130", "unaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_long_pass_unvectorized(cuda, kind, dtype):
+    """The 4-byte path (D % 4 != 0, or a payload off 16-byte alignment)
+    with long segments."""
+    d, r = (130, 5000) if kind == "d130" else (128, 5000)
+    ids = _with_segment(r, 1500, seed=25)
+    ids[4000:4050] = ids[4000]
+    upd_s = None
+    if kind == "unaligned":
+        gen = np.random.default_rng(25)
+        buf = torch.from_numpy(gen.normal(size=r * d + 1).astype(np.float32) * 1e-3).to(cuda)
+        upd_s = buf[1:].view(r, d)
+        assert upd_s.is_contiguous() and upd_s.data_ptr() % 16 != 0
+    _long_case(cuda, ids, d, dtype, seed=25, upd_s=upd_s)
+
+
+def test_mean_updates_wide_rows_under_apply_v2(cuda, monkeypatch):
+    """With APPLY_V2 set, a table wider than MAX_WINDOWED_DIM (here 512)
+    runs kernel 2.1 from both entry points, never the windowed kernel,
+    and equals the plain version of the same sorted streams."""
+    monkeypatch.setattr(apply_lib, "APPLY_V2", True)
+    n, d = 3000, 512
+    assert d > apply_lib.MAX_WINDOWED_DIM
+    gen = np.random.default_rng(26)
+    ids = torch.from_numpy(np.concatenate([gen.integers(0, n, 2000),
+                                           np.full(400, 17)]).astype(np.int32)).to(cuda)
+    upd = torch.from_numpy(gen.normal(size=(2400, d)).astype(np.float32)).to(cuda)
+    cnt = torch.ones(2400, device=cuda)
+    table = torch.randn(n, d, device=cuda)
+    want = table.clone()
+    ids_s, upd_s = apply_lib.sorted_stream_one(ids, upd, cnt, 0.05, 4.0)
+    apply_lib.apply_sorted_stream_plain(want, ids_s, upd_s, 3)
+    ids_s, upd_s = apply_lib.sorted_stream_two(ids, upd, cnt, ids[:7], upd[:7], cnt[:7],
+                                               0.05, 4.0, 4.0)
+    apply_lib.apply_sorted_stream_plain(want, ids_s, upd_s, 3)
+    old = apply_lib.apply_sorted_stream.launches
+    before = apply_lib.apply_sorted_stream_windowed.launches
+    got = apply_lib.apply_mean_updates(table, ids, upd, cnt, 0.05, cap=4.0, rng_seed=3)
+    apply_lib.apply_mean_updates_two(got, ids, upd, cnt, ids[:7], upd[:7], cnt[:7], 0.05,
+                                     rng_seed=3)
+    torch.cuda.synchronize()
+    assert apply_lib.apply_sorted_stream.launches == old + 2
+    assert apply_lib.apply_sorted_stream_windowed.launches == before
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 # -- the windowed applier (csrc/apply_v2.cu) ----------------------------------
