@@ -23,14 +23,17 @@ Phases (any failure raises, and the script exits non-zero):
    ``benchmarks/bench_powerlaw.py`` (exponent 2.2, mean degree 16),
    a. read from a ``.csr.npz`` into ``SparseOTF(p=0.5, q=2)``: hubs and
       the cdf channel;
-   b. the two rejection-trial kernels (``ops/trialkernel.py``) against
-      their plain torch version on 32,768 edge lanes, trials = 2 with the
-      return-edge atom, with and without ``force_ok``: bit for bit with
-      the cdf channel, under ``NO_CDF_MISMATCH_SHARE`` without it; times
-      (device time under ``torch.profiler``, mean of 20 calls; the
-      wrapper calls also by CUDA events, median of 20);
+   b. the two rejection-trial kernels (``ops/trialkernel.py``, on node
+      ids) against their plain torch version on 32,768 edge lanes,
+      trials = 2 with the return-edge atom, with and without
+      ``force_ok``: bit for bit with the cdf channel, under
+      ``NO_CDF_MISMATCH_SHARE`` without it (a column slice of the fused
+      table); times (device time under ``torch.profiler``, mean of 20
+      calls; the wrapper calls also by CUDA events, median of 20);
    c. ``simulate_walks_device(1, 80)`` through the queued engine: 2
-      trial-kernel launches per round, every sampled step an edge;
+      trial-kernel launches per round, every sampled step an edge, hub
+      walk steps/s; then one dispatch under ``torch.profiler``: the
+      round's device time;
    d. ``generate_walks_amortized`` on 32,768 starts;
    e. the second-order law on the card, both engines, undirected and
       directed: empirical transition frequencies against the exact law;
@@ -570,20 +573,22 @@ def search_sectors(deg):
     return torch.ceil(torch.log2(n_sec)) + 1
 
 
-def trial_bytes(dg, draws, prev, cur_rows, prev_rows, x, wx, p, q, alpha_np, theta):
+def trial_bytes(dg, draws, prev, cur, x, wx, p, q, alpha_np, theta):
     """Least bytes each trial kernel must move for this run's lanes (the
     cdf channel, the atom on), from each row's real degree, in 32-byte
     sectors for the gathers:
 
-    trial_propose: per lane the head sector of the cur row (the hub
-    marker, a hub's alias base); a capped row adds the sector of its cdf
-    total and, per trial whose atom does not fire, a binary search over
-    its cdf entries and the sectors of the picked wgt and nbr slots (nbr
-    beyond the head sector); a hub row adds one alias slot per such trial.
-    trial_accept: per lane the head sector of the prev row (a hub's hash
-    meta); per trial that still decides the outcome (no earlier trial
-    accepted, x != prev), a hub row probes one bucket's keys, a capped
-    row searches its sorted nbr entries (or scans them, if fewer sectors).
+    trial_propose: per lane its cur id, the sector of its degree and the
+    head sector of the cur row (the hub marker, a hub's alias base); a
+    capped row adds the sector of its cdf total and, per trial whose atom
+    does not fire, a binary search over its cdf entries and the sectors of
+    the picked wgt and nbr slots (nbr beyond the head sector); a hub row
+    adds one alias slot per such trial.
+    trial_accept: per lane its prev id, the sector of its degree and the
+    head sector of the prev row (a hub's hash meta); per trial that still
+    decides the outcome (no earlier trial accepted, x != prev), a hub row
+    probes one bucket's keys, a capped row searches its sorted nbr entries
+    (or scans them, if fewer sectors).
     Both: the per-lane draws, atom inputs and outputs, read or written
     once. Returns (propose bytes, accept bytes)."""
     import torch
@@ -593,6 +598,7 @@ def trial_bytes(dg, draws, prev, cur_rows, prev_rows, x, wx, p, q, alpha_np, the
     s = SECTOR
     trials, b = draws.kk.shape
     per_trial = draws.trials()
+    cur_rows, prev_rows = dg.gather_rows(cur), dg.gather_rows(prev)
     hub_c, hub_p = dg.rows_is_hub(cur_rows), dg.rows_is_hub(prev_rows)
     deg_c, deg_p = dg.rows_degree(cur_rows), dg.rows_degree(prev_rows)
 
@@ -602,8 +608,9 @@ def trial_bytes(dg, draws, prev, cur_rows, prev_rows, x, wx, p, q, alpha_np, the
     no_atom = torch.stack([d.u_atom >= theta for d in per_trial])
     capped_t = search_sectors(deg_c)[None] + 1 + (pick >= 8)
     row_t = torch.where(hub_c[None], 1.0, capped_t) * no_atom
-    propose_rows = s * (float(row_t.sum()) + b + float((~hub_c).sum()))
-    propose = propose_rows + b * (trials * 16 + 12) + b * trials * 8
+    # head sector of each row, a capped row's cdf total, the degree sector
+    propose_rows = s * (float(row_t.sum()) + b + float((~hub_c).sum()) + b)
+    propose = propose_rows + b * 4 + b * (trials * 16 + 12) + b * trials * 8
 
     oks = torch.stack([
         rejection._accept_trial(dg, d, x[t], wx[t], prev, None, prev_rows, p, q,
@@ -613,9 +620,37 @@ def trial_bytes(dg, draws, prev, cur_rows, prev_rows, x, wx, p, q, alpha_np, the
     decides = ((earlier == 0) & (x != prev[None])).sum(0).double()
     n_sec_p = torch.clamp((deg_p + 7) // 8, min=1).double()
     capped_p = torch.clamp(torch.minimum(n_sec_p, decides * search_sectors(deg_p)), min=1)
-    accept_rows = s * float(torch.where(hub_p, 1 + decides, capped_p).sum())
+    # plus the degree sector of each lane
+    accept_rows = s * (float(torch.where(hub_p, 1 + decides, capped_p).sum()) + b)
     accept = accept_rows + b * trials * 12 + b * 4 + b * 9
     return propose, accept
+
+
+def hub_trial_lanes(indptr, indices, dg):
+    """Phase 6b's lanes: ``HUB_LANES`` random edges prev -> cur of the
+    power-law graph, with the round's draws (``TRIALS``), the atom's
+    (theta, wp) at p = 0.5, q = 2 and a ``force_ok`` mask on a quarter of
+    them. Returns a dict of them and (p, q, alpha_np)."""
+    import torch
+
+    from pecanpy_tpu_torch.models import engine
+    from pecanpy_tpu_torch.ops import rejection
+
+    gen = np.random.default_rng(1)
+    e = gen.integers(0, indices.size, HUB_LANES)
+    cur = torch.from_numpy((np.searchsorted(indptr, e, side="right") - 1).astype(np.int32))
+    prev = torch.from_numpy(indices[e].astype(np.int32))  # undirected: an edge prev -> cur
+    cur, prev = cur.cuda(), prev.cuda()
+    cur_rows = dg.gather_rows(cur)
+    p, q = 0.5, 2.0
+    alpha_np = max(1.0, 1.0 / q)
+    _, wp = rejection.membership(dg, prev, cur_rows)
+    theta = engine._theta_from(dg, wp, cur_rows, 1.0 / p - alpha_np, alpha_np)
+    draws = engine.TrialDrawStream(0, 0, TRIALS, "cuda")(0, dg.rows_degree(cur_rows))
+    force_ok = torch.rand(HUB_LANES, device="cuda") < 0.25
+    lanes = dict(cur=cur, prev=prev, theta=theta, wp=wp, kk=draws.kk, u=draws.u,
+                 force_ok=force_ok)
+    return lanes, (p, q, alpha_np)
 
 
 def phase_hub_path(tmp):
@@ -653,42 +688,32 @@ def phase_hub_path(tmp):
         f"hbuckets {dg.hbuckets.numel() * 4 / 1e6:.0f} MB")
 
     # -- b. trial kernels against their plain version ---------------------
-    gen = np.random.default_rng(1)
-    e = gen.integers(0, indices.size, HUB_LANES)
-    cur_np = (np.searchsorted(indptr, e, side="right") - 1).astype(np.int32)
-    prev_np = indices[e].astype(np.int32)  # an edge prev -> cur (undirected)
-    cur = torch.from_numpy(cur_np).cuda()
-    prev = torch.from_numpy(prev_np).cuda()
-    cur_rows, prev_rows = dg.gather_rows(cur), dg.gather_rows(prev)
-    hub_c = int(dg.rows_is_hub(cur_rows).sum())
-    hub_p = int(dg.rows_is_hub(prev_rows).sum())
+    lanes, (p, q, alpha_np) = hub_trial_lanes(indptr, indices, dg)
+    cur, prev, theta, wp, force_ok = (
+        lanes[k] for k in ("cur", "prev", "theta", "wp", "force_ok"))
+    draws = rejection.RoundDraws(lanes["kk"], lanes["u"])
+    hub_c = int(dg.rows_is_hub(dg.gather_rows(cur)).sum())
+    hub_p = int(dg.rows_is_hub(dg.gather_rows(prev)).sum())
     if min(hub_c, hub_p) < HUB_LANES // 4:
         raise AssertionError(f"hub lanes: {hub_c} cur, {hub_p} prev of {HUB_LANES}")
-    p, q = 0.5, 2.0
-    alpha_np = max(1.0, 1.0 / q)
-    excess = 1.0 / p - alpha_np
-    _, wp = rejection.membership(dg, prev, cur_rows)
-    theta = engine._theta_from(dg, wp, cur_rows, excess, alpha_np)
-    draws = engine.TrialDrawStream(0, 0, TRIALS, "cuda")(0, dg.rows_degree(cur_rows))
-    force_ok = torch.rand(HUB_LANES, device="cuda") < 0.25
 
-    def block(dg_, rows_c, rows_p, use_cdf, force, kernel):
+    def block(dg_, use_cdf, force, kernel):
         """The trial block through the kernels, or its plain version."""
         if kernel:
             return trialkernel.trial_block_fused(
-                dg_, draws, prev, rows_c, rows_p, p, q, alpha_np, theta, wp,
+                dg_, draws, prev, cur, p, q, alpha_np, theta, wp,
                 use_cdf=use_cdf, force_ok=force)
         return rejection._trial_block(
-            dg_, draws.trials(), prev, rows_c, rows_p, p, q, False, alpha_np,
-            theta, wp, use_cdf=use_cdf, force_ok=force)
+            dg_, draws.trials(), prev, dg_.gather_rows(cur), dg_.gather_rows(prev), p, q,
+            False, alpha_np, theta, wp, use_cdf=use_cdf, force_ok=force)
 
     def n_differ(got, want):
         """Lanes where any of (chosen, got, chosen_w) differs."""
         return int(torch.stack([a != b for a, b in zip(got, want)]).any(0).sum())
 
     for force in (None, force_ok):
-        got = block(dg, cur_rows, prev_rows, True, force, True)
-        want = block(dg, cur_rows, prev_rows, True, force, False)
+        got = block(dg, True, force, True)
+        want = block(dg, True, force, False)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"cdf channel, force_ok {force is not None}: "
@@ -696,21 +721,21 @@ def phase_hub_path(tmp):
         log(f"[6b trial] cdf channel, force_ok {force is not None}: chosen, got, "
             f"chosen_w bit-equal to plain on {HUB_LANES} lanes ({hub_c} hub cur, "
             f"{hub_p} hub prev); accepted {int(got[1].sum())}")
-    # without the cdf channel: the first two channels of the same rows
+    # without the cdf channel: the first two channels of the same rows, a
+    # column slice of the table that the kernels read with its row stride
     dg_nc = dataclasses.replace(dg, fused=dg.fused[:, : 2 * dg.dpad], channels=("nbr", "wgt"))
-    rows_nc = [r[:, : 2 * dg.dpad].contiguous() for r in (cur_rows, prev_rows)]
-    got = block(dg_nc, *rows_nc, False, None, True)
-    want = block(dg_nc, *rows_nc, False, None, False)
+    got = block(dg_nc, False, None, True)
+    want = block(dg_nc, False, None, False)
     diff = n_differ(got, want)
     if diff > NO_CDF_MISMATCH_SHARE * HUB_LANES:
         raise AssertionError(f"no cdf channel: {diff} of {HUB_LANES} lanes differ")
     log(f"[6b trial] no cdf channel: {diff} of {HUB_LANES} lanes differ from plain "
         f"(allowed {NO_CDF_MISMATCH_SHARE:g} of them: prefix-sum order)")
 
-    x, wx = trialkernel.trial_propose(dg, draws, prev, cur_rows, theta, wp, True)
-    x_p, wx_p = trialkernel.trial_propose_plain(dg, draws, prev, cur_rows, theta, wp, True)
-    acc = trialkernel.trial_accept(dg, draws, x, wx, prev, prev_rows, p, q, alpha_np, True)
-    acc_p = trialkernel.trial_accept_plain(dg, draws, x, wx, prev, prev_rows, p, q, alpha_np, True)
+    x, wx = trialkernel.trial_propose(dg, draws, prev, cur, theta, wp, True)
+    x_p, wx_p = trialkernel.trial_propose_plain(dg, draws, prev, cur, theta, wp, True)
+    acc = trialkernel.trial_accept(dg, draws, x, wx, prev, p, q, alpha_np, True)
+    acc_p = trialkernel.trial_accept_plain(dg, draws, x, wx, prev, p, q, alpha_np, True)
     torch.cuda.synchronize()
     err_propose = max(float((x - x_p).abs().max()), float((wx - wx_p).abs().max()))
     err_accept = max(float((a.float() - b.float()).abs().max()) for a, b in zip(acc, acc_p))
@@ -718,19 +743,17 @@ def phase_hub_path(tmp):
         raise AssertionError(f"kernel halves differ: {err_propose}, {err_accept}")
     calls = {
         "trial_propose": (
-            lambda: trialkernel.trial_propose(dg, draws, prev, cur_rows, theta, wp, True),
-            lambda: trialkernel.trial_propose_plain(
-                dg, draws, prev, cur_rows, theta, wp, True)),
+            lambda: trialkernel.trial_propose(dg, draws, prev, cur, theta, wp, True),
+            lambda: trialkernel.trial_propose_plain(dg, draws, prev, cur, theta, wp, True)),
         "trial_accept": (
-            lambda: trialkernel.trial_accept(
-                dg, draws, x, wx, prev, prev_rows, p, q, alpha_np, True),
+            lambda: trialkernel.trial_accept(dg, draws, x, wx, prev, p, q, alpha_np, True),
             lambda: trialkernel.trial_accept_plain(
-                dg, draws, x, wx, prev, prev_rows, p, q, alpha_np, True)),
+                dg, draws, x, wx, prev, p, q, alpha_np, True)),
     }
-    block_ms = cuda_median_ms(lambda: block(dg, cur_rows, prev_rows, True, None, True))
-    block_plain_ms = cuda_median_ms(lambda: block(dg, cur_rows, prev_rows, True, None, False))
+    block_ms = cuda_median_ms(lambda: block(dg, True, None, True))
+    block_plain_ms = cuda_median_ms(lambda: block(dg, True, None, False))
     nbytes = dict(zip(("trial_propose", "trial_accept"), trial_bytes(
-        dg, draws, prev, cur_rows, prev_rows, x, wx, p, q, alpha_np, theta)))
+        dg, draws, prev, cur, x, wx, p, q, alpha_np, theta)))
     results = {}
     for name, (kernel_fn, plain_fn) in calls.items():
         ms, plain_ms = device_ms(kernel_fn), device_ms(plain_fn)
@@ -744,7 +767,7 @@ def phase_hub_path(tmp):
             f"{bound_ms:.5f} ms")
     log(f"[6b trial] whole trial block ({TRIALS} trials, {HUB_LANES} lanes): kernels "
         f"{block_ms:.4f} ms, plain {block_plain_ms:.4f} ms")
-    del dg_nc, rows_nc, cur_rows, prev_rows
+    del dg_nc, lanes, cur, prev
 
     # -- c. the queued engine over every start ----------------------------
     rounds = []
@@ -783,8 +806,21 @@ def phase_hub_path(tmp):
     log(f"[6c queued] sampled walks: all {n_checked} steps are edges; "
         f"{int((eff_np == 1).sum())} walks stopped at their start")
     del walks, eff
+    # the round's device time: one dispatch of the engine under the profiler
+    starts = torch.from_numpy(g._start_nodes(1)[:per]).cuda()
+    one = {}
+
+    def dispatch():
+        one["rounds"] = queued(
+            dg, starts, engine.TrialDrawStream(0, 0, TRIALS, "cuda"), WALK_LENGTH, p, q,
+            False, lanes=HUB_LANES, return_rounds=True)[2]
+
+    busy_ms = device_ms(dispatch, reps=1)
+    log(f"[6c queued] one dispatch of {per} walks: {one['rounds']} rounds, device busy "
+        f"{busy_ms / one['rounds']:.4f} ms per round under the profiler")
 
     # -- d. the per-batch amortized engine --------------------------------
+    gen = np.random.default_rng(2)
     start = torch.from_numpy(gen.integers(0, NODES, HUB_LANES).astype(np.int32)).cuda()
     before = trialkernel.trial_propose.launches
     t0 = time.perf_counter()

@@ -13,9 +13,12 @@ Counterpart of ``pecanpy_tpu/models/engine.py``:
   Python loop that reads the pending count on the host once per block
   of rounds, never once per round.
 
-The fused rows of the current AND previous node are carried from step to
-step, so each step performs exactly ONE table gather: the row of the node
-just stepped to. The previous node's row is last step's current row.
+The scan engine carries the fused rows of the current AND previous node
+from step to step, so each step performs exactly ONE table gather: the
+row of the node just stepped to. The previous node's row is last step's
+current row. The hub engines carry only the current rows (their dead
+check, the draws' degrees and the atom mass read them): the trial
+kernels read both nodes' rows by id.
 
 Every mode plugs in through two step callables:
 
@@ -151,19 +154,20 @@ def _theta_from(graph: DeviceCSR, wp, cur_rows, excess, alpha_np):
 
 
 def _trial_fn(graph: DeviceCSR, p, q, extend, alpha_np, use_cdf):
-    """The round's trial block: the CUDA kernels for node2vec (on a CPU
-    graph their plain version), the plain block for node2vec+."""
+    """The round's trial block on node ids: the CUDA kernels for node2vec,
+    which read both rows by id; the plain block (node2vec+, or a CPU
+    graph) on ``cur_rows`` and prev's row gathered here."""
 
-    def run(draws, prev, cur_rows, prev_rows, theta, wp, force_ok=None):
-        if extend:
+    def run(draws, prev, cur, cur_rows, theta, wp, force_ok=None):
+        if extend or cur.device.type == "cpu":
             return rejection._trial_block(
-                graph, draws.trials(), prev, cur_rows, prev_rows, p, q, True,
-                alpha_np, theta, wp, mode="auto", use_cdf=use_cdf,
+                graph, draws.trials(), prev, cur_rows, graph.gather_rows(prev), p, q,
+                extend, alpha_np, theta, wp, mode="auto", use_cdf=use_cdf,
                 force_ok=force_ok,
             )
         return trialkernel.trial_block_fused(
-            graph, draws, prev, cur_rows, prev_rows, p, q, alpha_np, theta,
-            wp, use_cdf=use_cdf, force_ok=force_ok,
+            graph, draws, prev, cur, p, q, alpha_np, theta, wp, use_cdf=use_cdf,
+            force_ok=force_ok,
         )
 
     return run
@@ -236,7 +240,6 @@ def generate_walks_queued(
     cur = starts[:b].clone()
     prev = cur.clone()
     cur_rows = graph.gather_rows(cur)
-    prev_rows = cur_rows
     big = torch.zeros((w_total + 1, walk_length + 1), dtype=torch.int32, device=dev)
     eff_big = torch.full((w_total + 1,), walk_length + 1, dtype=torch.int32, device=dev)
     buf_l = torch.zeros((b, walk_length + 2), dtype=torch.int32, device=dev)
@@ -266,15 +269,14 @@ def generate_walks_queued(
             # acceptance of trial 1's proposal (their atom mass is 0)
             needs = active & has & (step <= walk_length)
             x, ok, wx = trial_fn(
-                draws(t, graph.rows_degree(cur_rows)), prev, cur_rows,
-                prev_rows, theta if use_atom else None,
-                wp if use_atom else None, force_ok=step == 1,
+                draws(t, graph.rows_degree(cur_rows)), prev, cur, cur_rows,
+                theta if use_atom else None, wp if use_atom else None,
+                force_ok=step == 1,
             )
             t += 1
             adv = needs & ok
             prev = torch.where(adv, cur, prev)
             cur = torch.where(adv, x, cur)
-            prev_rows = torch.where(adv[:, None], cur_rows, prev_rows)
             col = torch.where(adv, step, walk_length + 1)
             buf_l.scatter_(1, col[:, None].long(), x[:, None])
             step = step + adv.to(torch.int32)
@@ -411,7 +413,7 @@ def generate_walks_amortized(
     else:
         theta = wp = None
 
-    cur, prev, cur_rows, prev_rows = col1, start, col1_rows, start_rows
+    cur, prev, cur_rows = col1, start, col1_rows
     step = torch.full((b,), 2, dtype=torch.int32, device=dev)
     round_cap = walk_length * round_cap_factor + 64
     unroll = max(int(unroll), 1)
@@ -425,8 +427,7 @@ def generate_walks_amortized(
         for _ in range(unroll):
             needs = alive & (step <= walk_length)
             x, ok, wx = trial_fn(
-                draws(t, graph.rows_degree(cur_rows)), prev, cur_rows,
-                prev_rows, theta, wp,
+                draws(t, graph.rows_degree(cur_rows)), prev, cur, cur_rows, theta, wp
             )
             t += 1
             adv = needs & ok
@@ -434,7 +435,6 @@ def generate_walks_amortized(
             buf.scatter_(1, col[:, None].long(), x[:, None])
             prev = torch.where(adv, cur, prev)
             cur = torch.where(adv, x, cur)
-            prev_rows = torch.where(adv[:, None], cur_rows, prev_rows)
             cur_rows = graph.gather_rows(cur)  # the one row gather per round
             step = step + adv.to(torch.int32)
             # arrival check: stepping onto a node with no out-edges ends

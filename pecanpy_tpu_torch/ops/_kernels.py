@@ -107,18 +107,21 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.pecanpy_apply_windowed_grid.argtypes = [ptr, ptr, i32, i32]  # table, upd, D, bf16
     lib.pecanpy_apply_windowed_grid.restype = ctypes.c_int
+    lib.pecanpy_trial_lanes_per_block.argtypes = []
+    lib.pecanpy_trial_lanes_per_block.restype = i32
     lib.pecanpy_trial_propose.argtypes = [
-        ptr, i64, i32, i32,  # rows, stride, dpad, cdf_off
+        ptr, i64, i32, i32, ptr,  # fused, row stride, dpad, cdf_off, deg
         ptr, i64, ptr, ptr,  # edge_pack, n_slots, kk, u
-        ptr, ptr, ptr, ptr, ptr,  # theta, wp, prev, x_out, w_out
-        i64, i32, i32, ptr,  # B, T, num_nodes, stream
+        ptr, ptr, ptr, ptr, ptr, ptr,  # theta, wp, prev, cur, x_out, w_out
+        i64, i32, i32, ctypes.c_uint, ptr,  # B, T, num_nodes, grid, stream
     ]
     lib.pecanpy_trial_accept.argtypes = [
-        ptr, i64, i32, ptr, i64,  # rows, stride, dpad, hbuckets, n_buckets
+        ptr, i64, i32, ptr,  # fused, row stride, dpad, deg
+        ptr, i64,  # hbuckets, n_buckets
         ptr, ptr, ptr, ptr, ptr,  # xs, ws, u, prev, force_ok
         f32, f32, f32, i32,  # inv_p, inv_q, alpha_np, use_atom
         ptr, ptr, ptr,  # chosen, got, chosen_w
-        i64, i32, i32, ptr,  # B, T, num_nodes, stream
+        i64, i32, i32, ctypes.c_uint, ptr,  # B, T, num_nodes, grid, stream
     ]
     for name in ("pecanpy_trial_propose", "pecanpy_trial_accept"):
         getattr(lib, name).restype = ctypes.c_int

@@ -2,7 +2,8 @@
 """Where the PyTorch port's time goes, on one NVIDIA GPU.
 
     python3 profile_port.py [--out chiprun_out/profile_port.txt]
-                            [--sections walks,sgns,hub,precomp,apply,apply-sweep]
+                            [--sections walks,sgns,hub,precomp,apply,apply-sweep,trial-sweep]
+                            [--trial-baseline OLD_TRIAL_CU]
 
 Runs the configurations of ``chip_smoke.py`` (p=0.5, q=2, walks of 80
 steps) and measures these steady-state windows:
@@ -16,7 +17,8 @@ steps) and measures these steady-state windows:
   final table fetch);
 - hub: on the hub path's graph (the 1M-node Chung-Lu power-law graph of
   ``benchmarks/bench_powerlaw.py``), one dispatch of the queued engine:
-  262,144 walks of 80 steps on 32,768 lanes, reported per round;
+  262,144 walks of 80 steps on 32,768 lanes, reported per round, with
+  every op of the round by device time;
 - precomp: on the main path's graph, the PreComp edge-CDF build (host
   clock), its ``simulate_walks_device(1, 80)``, and the SGNS window on
   those walks with the windowed applier (``PECANPY_TPU_APPLY_V2``);
@@ -27,7 +29,14 @@ steps) and measures these steady-state windows:
   host time with the share of their checks. Under a minute;
 - apply-sweep: no graph; kernel 2.1 built with other values of its
   constants (``APPLY_SWEEP``) against the committed build on the same
-  streams, by device time, in turns.
+  streams, by device time, in turns;
+- trial-sweep: on the hub path's graph, ``chip_smoke.py`` 6b's 32,768
+  edge lanes (2 trials, cdf channel); both trial kernels built from
+  ``--trial-baseline`` (an earlier ``csrc/trial.cu`` whose kernels take
+  gathered rows, e.g. ``git show dfb011c:pecanpy_tpu_torch/csrc/trial.cu``),
+  from the committed source, and with other values of its constants
+  (``TRIAL_SWEEP``), each build in a process of its own, in turns; every
+  build is held bit-equal to the plain halves before it is timed.
 
 Each window is timed twice: on the host clock with a synchronize at each
 end (ms per step, rate), and under ``torch.profiler`` (device time by
@@ -51,9 +60,10 @@ def log(msg):
     print(msg, flush=True)
 
 
-def profiled(fn, label, out):
-    """Run ``fn`` once on the host clock and once under the profiler;
-    returns (host seconds, device-busy seconds or None)."""
+def profiled(fn, label, out, top=8):
+    """Run ``fn`` once on the host clock and once under the profiler,
+    printing its ``top`` ops by device time; returns (host seconds,
+    device-busy seconds or None)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -77,9 +87,10 @@ def profiled(fn, label, out):
     table = events.table(sort_by="self_cuda_time_total", row_limit=TOP_OPS)
     out.write(f"== {label}\n{table}\n")
     ops = [e for e in events if e.device_type != DeviceType.CUDA]
-    for e in sorted(ops, key=self_device_us, reverse=True)[:8]:
-        log(f"    {e.key[:40]:40s} {self_device_us(e) / 1e3:9.3f} ms device, "
-            f"{e.count} calls")
+    for e in sorted(ops, key=self_device_us, reverse=True)[:top]:
+        if self_device_us(e) > 0:
+            log(f"    {e.key[:40]:40s} {self_device_us(e) / 1e3:9.3f} ms device, "
+                f"{e.count} calls")
     for e in kernels:  # the port's own kernels have no aten op
         for tag in ("apply_sorted_kernel", "apply_windowed_kernel", "trial_propose_kernel",
                     "trial_accept_kernel"):
@@ -94,9 +105,14 @@ def main():
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "profile_port.txt"))
     ap.add_argument("--sections", default="walks,sgns,hub,precomp",
                     help="comma-separated subset of walks, sgns, hub, precomp, apply, "
-                         "apply-sweep")
+                         "apply-sweep, trial-sweep")
     ap.add_argument("--apply-lib", help="with --sections apply-lib: time kernel 2.1 "
                     "from this build of the library (the sweep's own processes)")
+    ap.add_argument("--trial-baseline", help="with --sections trial-sweep: an earlier "
+                    "csrc/trial.cu whose kernels take gathered rows, timed first")
+    ap.add_argument("--trial-lib", nargs=3, metavar=("LIB", "INPUTS", "DESIGN"),
+                    help="with --sections trial-lib: time the trial kernels of LIB on the "
+                    "saved lanes INPUTS; DESIGN is ids or rows (the sweep's own processes)")
     args = ap.parse_args()
     sections = set(args.sections.split(","))
 
@@ -120,6 +136,12 @@ def main():
             sweep_apply()
         if "apply-lib" in sections:
             time_apply_lib(args.apply_lib)
+        if "trial-sweep" in sections:
+            if not args.trial_baseline:
+                raise SystemExit("--sections trial-sweep needs --trial-baseline")
+            sweep_trial(tmp, args.trial_baseline)
+        if "trial-lib" in sections:
+            time_trial_lib(*args.trial_lib)
         if sections & {"walks", "sgns", "precomp"}:
             profile_main(tmp, out, sections)
         if "hub" in sections:
@@ -400,13 +422,11 @@ def time_apply_lib(path):
         log(f"[sweep]   {name}, device ms (bit-equal to plain): {', '.join(times)}")
 
 
-def profile_hub(tmp, out):
-    """One queued-engine dispatch on the power-law graph, per round."""
-    import torch
-
-    from chip_smoke import HUB_LANES, NODES, TRIALS, WALK_LENGTH, build_powerlaw_graph
+def hub_graph(tmp):
+    """The hub path's power-law graph through ``SparseOTF(p=0.5, q=2)``:
+    (the mode, its device graph, indptr, indices)."""
+    from chip_smoke import NODES, build_powerlaw_graph
     from pecanpy_tpu_torch import pecanpy
-    from pecanpy_tpu_torch.models import engine
 
     indptr, indices, data = build_powerlaw_graph(NODES)
     path = os.path.join(tmp, "powerlaw_graph.csr.npz")
@@ -414,7 +434,18 @@ def profile_hub(tmp, out):
     g = pecanpy.SparseOTF(p=0.5, q=2.0, random_state=0, device="cuda")
     g.read_npz(path, weighted=True, implicit_ids=True)
     g.preprocess_transition_probs()
-    dg = g.get_device_graph()
+    return g, g.get_device_graph(), indptr, indices
+
+
+def profile_hub(tmp, out):
+    """One queued-engine dispatch on the power-law graph, per round, with
+    every op of the round."""
+    import torch
+
+    from chip_smoke import HUB_LANES, TRIALS, WALK_LENGTH
+    from pecanpy_tpu_torch.models import engine
+
+    g, dg, _, _ = hub_graph(tmp)
     walks_per = HUB_LANES * g._walk_queue_factor()
     starts = torch.from_numpy(g._start_nodes(1)[:walks_per]).cuda()
     result = {}
@@ -427,8 +458,8 @@ def profile_hub(tmp, out):
 
     dispatch(0)  # warm-up
     log(f"[hub] queued engine, {walks_per} walks of {WALK_LENGTH} steps on "
-        f"{HUB_LANES} lanes, top ops by device time:")
-    host_s, busy_s = profiled(lambda: dispatch(1), "hub", out)
+        f"{HUB_LANES} lanes, every op with device time:")
+    host_s, busy_s = profiled(lambda: dispatch(1), "hub", out, top=100)
     _, eff, rounds = result["out"]
     steps = float((eff.to(torch.int64) - 1).sum())
     log(f"[hub] {host_s:.4f} s host clock, {rounds} rounds (each run): "
@@ -437,6 +468,191 @@ def profile_hub(tmp, out):
     if busy_s is not None:
         log(f"[hub] device busy {1e3 * busy_s / rounds:.4f} ms per round under the "
             f"profiler: idle share {1 - busy_s / host_s:.4f} of the host-clock window")
+
+
+# the trial kernels' constants in csrc/trial.cu, and the variants the sweep
+# builds: (kGroup, kMinBlocks)
+TRIAL_CONSTANTS = ("kGroup", "kMinBlocks")
+TRIAL_SWEEP = [(4, 8), (8, 8), (8, 4), (16, 4), (32, 4)]
+
+
+def sweep_trial(tmp, baseline, variants=TRIAL_SWEEP):
+    """Both trial kernels from ``baseline`` (an earlier ``csrc/trial.cu``
+    on gathered rows), from the committed source, and with other values
+    of its constants, on ``chip_smoke.py`` 6b's lanes: each build in a
+    process of its own (``--trial-lib``), in the order baseline,
+    committed, variants, committed, baseline."""
+    import re
+    import shutil
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    import torch
+
+    from chip_smoke import hub_trial_lanes
+    from pecanpy_tpu_torch.ops import _kernels
+
+    _, dg, indptr, indices = hub_graph(tmp)
+    lanes, pqa = hub_trial_lanes(indptr, indices, dg)
+    inputs = os.path.join(tmp, "trial_inputs.pt")
+    fields = ("fused", "deg", "threshold", "indptr", "edge_pack", "hbuckets", "channels",
+              "dpad", "max_degree", "gamma", "has_hubs", "symmetric", "hub_frac")
+    torch.save(dict(dg={k: getattr(dg, k) for k in fields}, lanes=lanes, pqa=pqa), inputs)
+    del dg, lanes
+    torch.cuda.empty_cache()
+
+    source = (_kernels.CSRC_DIR / "trial.cu").read_text()
+    pattern = r"constexpr int {} = (\d+);"
+    committed = tuple(int(re.search(pattern.format(k), source).group(1))
+                      for k in TRIAL_CONSTANTS)
+
+    def build(name, text):
+        src = Path(tmp) / f"csrc_{name}"
+        shutil.copytree(_kernels.CSRC_DIR, src)
+        (src / "trial.cu").write_text(text)
+        return _kernels.build(src, _kernels.BUILD_DIR / "sweep")
+
+    def variant(values):
+        text = source
+        for key, value in zip(TRIAL_CONSTANTS, values):
+            text = re.sub(pattern.format(key), f"constexpr int {key} = {value};", text)
+        return text
+
+    t0 = time.perf_counter()
+    jobs = [("baseline", Path(baseline).read_text())] + [
+        ("_".join(map(str, v)), variant(v)) for v in (committed, *variants)]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        paths = dict(zip([name for name, _ in jobs], pool.map(lambda j: build(*j), jobs)))
+    log(f"[trial-sweep] {len(jobs)} builds of csrc/trial.cu in "
+        f"{time.perf_counter() - t0:.1f} s; constants {TRIAL_CONSTANTS}, committed "
+        f"{committed}; baseline {baseline}")
+    key = "_".join(map(str, committed))
+    order = ["baseline", key, *["_".join(map(str, v)) for v in variants], key, "baseline"]
+    for name in order:
+        label = "baseline" if name == "baseline" else dict(zip(TRIAL_CONSTANTS, map(
+            int, name.split("_"))))
+        log(f"[trial-sweep] {label}{' (committed)' if name == key else ''}:")
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--sections", "trial-lib",
+                        "--trial-lib", str(paths[name]), inputs,
+                        "rows" if name == "baseline" else "ids"], check=True)
+
+
+def _rows_design(lib, dg, draws, prev, cur, theta, wp, p, q, alpha_np):
+    """The two kernels of a ``csrc/trial.cu`` whose entry points take
+    gathered rows (``dfb011c``'s interface), as calls of the id
+    interface's shape: (propose(), accept(x, wx))."""
+    import ctypes
+
+    import torch
+
+    from pecanpy_tpu_torch.ops.hubs import EP_WIDTH
+    from pecanpy_tpu_torch.ops.layout import HB_WIDTH
+
+    ptr, i64, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    lib.pecanpy_trial_propose.argtypes = [ptr, i64, i32, i32, ptr, i64, ptr, ptr, ptr, ptr,
+                                          ptr, ptr, ptr, i64, i32, i32, ptr]
+    lib.pecanpy_trial_accept.argtypes = [ptr, i64, i32, ptr, i64, ptr, ptr, ptr, ptr, ptr,
+                                         f32, f32, f32, i32, ptr, ptr, ptr, i64, i32, i32,
+                                         ptr]
+    rows_c, rows_p = dg.gather_rows(cur), dg.gather_rows(prev)
+    trials, b = draws.kk.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    x = torch.empty((trials, b), dtype=torch.int32, device="cuda")
+    w = torch.empty((trials, b), dtype=torch.float32, device="cuda")
+    chosen = torch.empty(b, dtype=torch.int32, device="cuda")
+    got = torch.empty(b, dtype=torch.bool, device="cuda")
+    chosen_w = torch.empty(b, dtype=torch.float32, device="cuda")
+
+    def propose():
+        code = lib.pecanpy_trial_propose(
+            rows_c.data_ptr(), rows_c.shape[1], dg.dpad, dg.channels.index("cdf") * dg.dpad,
+            dg.edge_pack.data_ptr(), dg.edge_pack.numel() // EP_WIDTH, draws.kk.data_ptr(),
+            draws.u.data_ptr(), theta.data_ptr(), wp.data_ptr(), prev.data_ptr(),
+            x.data_ptr(), w.data_ptr(), b, trials, dg.num_nodes, stream)
+        assert code == 0, code
+        return x, w
+
+    def accept(xs, ws):
+        code = lib.pecanpy_trial_accept(
+            rows_p.data_ptr(), rows_p.shape[1], dg.dpad, dg.hbuckets.data_ptr(),
+            dg.hbuckets.numel() // HB_WIDTH, xs.data_ptr(), ws.data_ptr(), draws.u.data_ptr(),
+            prev.data_ptr(), None, 1.0 / p, 1.0 / q, alpha_np, 1, chosen.data_ptr(),
+            got.data_ptr(), chosen_w.data_ptr(), b, trials, dg.num_nodes, stream)
+        assert code == 0, code
+        return chosen, got, chosen_w
+
+    return propose, accept
+
+
+def time_trial_lib(path, inputs, design):
+    """Both trial kernels from the library at ``path`` on the saved lanes:
+    held bit-equal to the plain halves, then timed by device time (mean of
+    20) and CUDA events (median of 20)."""
+    import ctypes
+
+    import torch
+
+    from chip_smoke import cuda_median_ms, device_ms
+    from pecanpy_tpu_torch.ops import _kernels, trialkernel
+    from pecanpy_tpu_torch.ops.layout import DeviceCSR
+    from pecanpy_tpu_torch.ops.rejection import RoundDraws
+
+    saved = torch.load(inputs, map_location="cuda")
+    dg = DeviceCSR(**saved["dg"])
+    lanes = saved["lanes"]
+    cur, prev, theta, wp = (lanes[k] for k in ("cur", "prev", "theta", "wp"))
+    draws = RoundDraws(lanes["kk"], lanes["u"])
+    p, q, alpha_np = saved["pqa"]
+    x_p, wx_p = trialkernel.trial_propose_plain(dg, draws, prev, cur, theta, wp, True)
+    acc_p = trialkernel.trial_accept_plain(dg, draws, x_p, wx_p, prev, p, q, alpha_np, True)
+    lib = ctypes.CDLL(path)
+    if design == "ids":
+        _kernels.bind(lib)
+        _kernels.load = lambda: lib
+        propose = lambda: trialkernel.trial_propose(dg, draws, prev, cur, theta, wp, True)
+        accept = lambda xs, ws: trialkernel.trial_accept(
+            dg, draws, xs, ws, prev, p, q, alpha_np, True)
+    else:
+        propose, accept = _rows_design(lib, dg, draws, prev, cur, theta, wp, p, q, alpha_np)
+    for label, got, want in (("propose", propose(), (x_p, wx_p)),
+                             ("accept", accept(x_p, wx_p), acc_p)):
+        if not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(got, want)):
+            raise AssertionError(f"trial {label} differs from its plain version")
+    times = []
+    for label, fn in (("trial_propose", propose), ("trial_accept", lambda: accept(x_p, wx_p))):
+        times.append(f"{label} {device_ms(fn):.4f} / {cuda_median_ms(fn):.4f} / "
+                     f"{cold_kernel_ms(fn, label):.4f}")
+    log(f"[trial-sweep]   bit-equal to plain; ms device / CUDA events / device with a cold "
+        f"L2: {', '.join(times)}")
+
+
+def cold_kernel_ms(fn, name, reps=20):
+    """Mean device time of the kernels named ``name`` that ``fn`` launches,
+    each launch after a 128 MB write that evicts the 50 MB L2, as a walk
+    round meets the rows: under ``torch.profiler``, the write's own
+    kernel left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import self_device_us
+
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a session now and then records no device activity
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        us = sum(self_device_us(e) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and name in e.key)
+        if us > 0:
+            return us / 1e3 / reps
+    raise RuntimeError(f"torch.profiler recorded no {name} kernel in three sessions")
 
 
 if __name__ == "__main__":

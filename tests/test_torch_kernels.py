@@ -5,7 +5,9 @@ The table applier (``csrc/apply.cu``), its windowed variant
 rejection-trial kernels (``csrc/trial.cu``); the trial kernels must equal
 their plain version
 (``rejection._trial_block``) bit for bit, with the cdf channel on any
-weights and without it on integer weights.
+weights and without it on integer weights; without it on float weights
+at most 1e-3 of the lanes may differ (the group's prefix sum adds in
+another order than ``torch.cumsum``).
 
 These tests need a CUDA device and the CUDA toolkit (``nvcc``); they skip
 without a device. They import torch and the port only (no jax), so they
@@ -537,6 +539,45 @@ def test_mean_updates_route_to_the_windowed_kernel(cuda, monkeypatch):
 
 # -- the rejection-trial kernels (csrc/trial.cu) ------------------------------
 
+# the degrees the kernels' row reads turn on: a dead row, rows that end
+# inside, at and just past the first 32-slot head, a full row (dpad = the
+# cap, 64), and hubs (above the cap)
+EDGE_DEGREES = (0, 1, 31, 32, 33, 64, 100, 150)
+DEGREE_CAP = 64
+
+
+def degree_graph(seed, n=240, float_weights=False):
+    """Directed graph whose first nodes have the out-degrees of
+    ``EDGE_DEGREES`` (node 0 has none), the rest 1..64, and the last node
+    a hub; integer weights 1..3 (exact prefix sums) or float weights.
+    Degree cap ``DEGREE_CAP``: rows are 64 slots wide."""
+    gen = np.random.default_rng(seed)
+    deg = np.concatenate([EDGE_DEGREES, gen.integers(1, DEGREE_CAP + 1, n - len(EDGE_DEGREES))])
+    deg[-1] = 120
+    adj = np.zeros((n, n))
+    for i, d in enumerate(deg):
+        nbrs = gen.choice(np.delete(np.arange(n), i), int(d), replace=False)
+        adj[i, nbrs] = gen.integers(1, 4, int(d)) + (gen.random(int(d)) if float_weights else 0)
+    return adj
+
+
+def degree_lanes(adj, b, seed):
+    """[B] int32 (cur, prev) lanes over ``degree_graph``: every node of
+    ``EDGE_DEGREES`` and node N - 1 as cur and as prev (the dead node 0
+    too), then random lanes, half of them with prev an in-neighbor of cur."""
+    gen = np.random.default_rng(seed)
+    n = adj.shape[0]
+    special = np.array([*range(len(EDGE_DEGREES)), n - 1])
+    cur = gen.integers(0, n, b)
+    prev = gen.integers(0, n, b)
+    k = special.size
+    cur[:k], prev[k:2 * k] = special, special
+    for i in range(2 * k, b, 2):
+        into = np.nonzero(adj[:, cur[i]])[0]
+        if into.size:
+            prev[i] = gen.choice(into)
+    return cur.astype(np.int32), prev.astype(np.int32)
+
 
 def _hub_graph(seed, n=300, directed=False, float_weights=False):
     """Random graph with integer weights 1..3 (exact prefix sums) or float
@@ -554,9 +595,23 @@ def _hub_graph(seed, n=300, directed=False, float_weights=False):
     return adj, cap
 
 
-def _trial_inputs(cuda, adj, cap, b, trials, use_cdf, seed, p=0.5, q=2.0, hub_lanes=True):
+def _lane_state(dg, cur_t, prev_t, trials, seed, p, q):
+    """The round's draws and the atom's (theta, wp) for the lanes."""
     from pecanpy_tpu_torch.models import engine
     from pecanpy_tpu_torch.ops import rejection
+
+    cur_rows = dg.gather_rows(cur_t)
+    draws = engine.TrialDrawStream(seed, 0, trials, cur_t.device)(0, dg.rows_degree(cur_rows))
+    alpha_np = max(1.0, 1.0 / q)
+    excess = 1.0 / p - alpha_np
+    theta = wp = None
+    if excess > 0:
+        _, wp = rejection.membership(dg, prev_t, cur_rows)
+        theta = engine._theta_from(dg, wp, cur_rows, excess, alpha_np)
+    return draws, alpha_np, theta, wp
+
+
+def _trial_inputs(cuda, adj, cap, b, trials, use_cdf, seed, p=0.5, q=2.0, hub_lanes=True):
     from pecanpy_tpu_torch.ops.layout import device_csr_from_dense
 
     dg = device_csr_from_dense(adj, degree_cap=cap, with_cdf=use_cdf, device=cuda)
@@ -566,18 +621,18 @@ def _trial_inputs(cuda, adj, cap, b, trials, use_cdf, seed, p=0.5, q=2.0, hub_la
     cu, pr = np.nonzero(adj.T)  # every edge prev -> cur
     keep = np.ones(cu.size, bool) if hub_lanes else capped[cu] & capped[pr]
     pick = gen.choice(np.nonzero(keep)[0], b)
-    cur, prev = cu[pick], pr[pick]
-    cur_t = torch.from_numpy(cur.astype(np.int32)).to(cuda)
-    prev_t = torch.from_numpy(prev.astype(np.int32)).to(cuda)
-    cur_rows, prev_rows = dg.gather_rows(cur_t), dg.gather_rows(prev_t)
-    draws = engine.TrialDrawStream(seed, 0, trials, cuda)(0, dg.rows_degree(cur_rows))
-    alpha_np = max(1.0, 1.0 / q)
-    excess = 1.0 / p - alpha_np
-    theta = wp = None
-    if excess > 0:
-        _, wp = rejection.membership(dg, prev_t, cur_rows)
-        theta = engine._theta_from(dg, wp, cur_rows, excess, alpha_np)
-    return dg, draws, prev_t, cur_rows, prev_rows, alpha_np, theta, wp
+    cur_t = torch.from_numpy(cu[pick].astype(np.int32)).to(cuda)
+    prev_t = torch.from_numpy(pr[pick].astype(np.int32)).to(cuda)
+    draws, alpha_np, theta, wp = _lane_state(dg, cur_t, prev_t, trials, seed, p, q)
+    return dg, draws, prev_t, cur_t, alpha_np, theta, wp
+
+
+def _plain_block(dg, draws, prev, cur, p, q, alpha_np, theta, wp, use_cdf=False, force_ok=None):
+    from pecanpy_tpu_torch.ops import rejection
+
+    return rejection._trial_block(
+        dg, draws.trials(), prev, dg.gather_rows(cur), dg.gather_rows(prev), p, q, False,
+        alpha_np, theta, wp, use_cdf=use_cdf, force_ok=force_ok)
 
 
 def _assert_bitwise(got, want):
@@ -587,73 +642,126 @@ def _assert_bitwise(got, want):
                            b.view(torch.int32) if b.dtype == torch.float32 else b)
 
 
+def _assert_halves_match_plain(dg, draws, prev, cur, p, q, alpha_np, theta, wp, use_cdf,
+                               force_ok):
+    """Each kernel against its own plain half, bit for bit."""
+    from pecanpy_tpu_torch.ops import trialkernel
+
+    x, wx = trialkernel.trial_propose(dg, draws, prev, cur, theta, wp, use_cdf)
+    _assert_bitwise((x, wx), trialkernel.trial_propose_plain(
+        dg, draws, prev, cur, theta, wp, use_cdf))
+    _assert_bitwise(
+        trialkernel.trial_accept(dg, draws, x, wx, prev, p, q, alpha_np,
+                                 theta is not None, force_ok),
+        trialkernel.trial_accept_plain(dg, draws, x, wx, prev, p, q,
+                                       alpha_np, theta is not None, force_ok))
+
+
 @pytest.mark.parametrize("trials", [1, 2, 3])
 @pytest.mark.parametrize("p,q", [(0.5, 2.0), (2.0, 0.3)])  # atom on / off
 @pytest.mark.parametrize("use_cdf", [True, False])
 def test_trial_kernels_match_plain(cuda, trials, p, q, use_cdf):
-    from pecanpy_tpu_torch.ops import rejection, trialkernel
+    from pecanpy_tpu_torch.ops import trialkernel
 
     adj, cap = _hub_graph(trials)
-    b = 1001  # not a multiple of the 8-lane block
-    dg, draws, prev, cur_rows, prev_rows, alpha_np, theta, wp = _trial_inputs(
+    b = 1001  # not a multiple of the lanes per block
+    dg, draws, prev, cur, alpha_np, theta, wp = _trial_inputs(
         cuda, adj, cap, b, trials, use_cdf, seed=trials, p=p, q=q)
-    is_hub = dg.rows_is_hub(cur_rows)
-    assert 0 < int(is_hub.sum()) < b and 0 < int(dg.rows_is_hub(prev_rows).sum()) < b
+    is_hub = dg.rows_is_hub(dg.gather_rows(cur))
+    assert 0 < int(is_hub.sum()) < b
+    assert 0 < int(dg.rows_is_hub(dg.gather_rows(prev)).sum()) < b
     force_ok = torch.rand(b, device=cuda) < 0.2
     for force in (None, force_ok):
         n_p, n_a = trialkernel.trial_propose.launches, trialkernel.trial_accept.launches
         got = trialkernel.trial_block_fused(
-            dg, draws, prev, cur_rows, prev_rows, p, q, alpha_np, theta, wp,
-            use_cdf=use_cdf, force_ok=force)
+            dg, draws, prev, cur, p, q, alpha_np, theta, wp, use_cdf=use_cdf, force_ok=force)
         torch.cuda.synchronize()
         assert trialkernel.trial_propose.launches == n_p + 1
         assert trialkernel.trial_accept.launches == n_a + 1
-        want = rejection._trial_block(
-            dg, draws.trials(), prev, cur_rows, prev_rows, p, q, False, alpha_np, theta, wp,
-            use_cdf=use_cdf, force_ok=force)
+        want = _plain_block(dg, draws, prev, cur, p, q, alpha_np, theta, wp, use_cdf, force)
         _assert_bitwise(got, want)
-    # each half against its own plain version
-    x, wx = trialkernel.trial_propose(dg, draws, prev, cur_rows, theta, wp, use_cdf)
-    _assert_bitwise((x, wx), trialkernel.trial_propose_plain(
-        dg, draws, prev, cur_rows, theta, wp, use_cdf))
-    _assert_bitwise(
-        trialkernel.trial_accept(dg, draws, x, wx, prev, prev_rows, p, q, alpha_np,
-                                 theta is not None, force_ok),
-        trialkernel.trial_accept_plain(dg, draws, x, wx, prev, prev_rows, p, q,
-                                       alpha_np, theta is not None, force_ok))
+    _assert_halves_match_plain(dg, draws, prev, cur, p, q, alpha_np, theta, wp, use_cdf,
+                               force_ok)
+
+
+@pytest.mark.parametrize("trials", [1, 8])
+@pytest.mark.parametrize("use_cdf", [True, False])
+def test_trial_kernels_row_degrees(cuda, trials, use_cdf):
+    """Rows of degree 0, 1, 31, 32, 33 and dpad, hubs, and node N - 1, as
+    cur and as prev, on 1001 lanes (not a multiple of the lanes per
+    block); integer weights, so bit-equal with and without the cdf
+    channel."""
+    from pecanpy_tpu_torch.ops import trialkernel
+    from pecanpy_tpu_torch.ops.layout import device_csr_from_dense
+
+    adj = degree_graph(trials)
+    dg = device_csr_from_dense(adj, degree_cap=DEGREE_CAP, with_cdf=use_cdf, device=cuda)
+    assert dg.dpad == DEGREE_CAP and dg.has_hubs
+    cur_np, prev_np = degree_lanes(adj, 1001, seed=trials)
+    cur = torch.from_numpy(cur_np).to(cuda)
+    prev = torch.from_numpy(prev_np).to(cuda)
+    p, q = 0.5, 2.0
+    draws, alpha_np, theta, wp = _lane_state(dg, cur, prev, trials, trials, p, q)
+    force_ok = torch.rand(cur.numel(), device=cuda) < 0.2
+    for force in (None, force_ok):
+        got = trialkernel.trial_block_fused(
+            dg, draws, prev, cur, p, q, alpha_np, theta, wp, use_cdf=use_cdf, force_ok=force)
+        torch.cuda.synchronize()
+        _assert_bitwise(got, _plain_block(
+            dg, draws, prev, cur, p, q, alpha_np, theta, wp, use_cdf, force))
+    _assert_halves_match_plain(dg, draws, prev, cur, p, q, alpha_np, theta, wp, use_cdf,
+                               force_ok)
+    # the dead node's lanes pick its padding (nbr N, weight 0)
+    x, wx = trialkernel.trial_propose(dg, draws, prev, cur, None, None, use_cdf)
+    dead = cur == 0
+    assert bool((x[:, dead] == dg.num_nodes).all()) and bool((wx[:, dead] == 0).all())
 
 
 def test_trial_kernels_no_hub_lanes(cuda):
     """A batch whose cur and prev rows are all capped: no table index is
     computed from a capped row's neighbor slots (a fault if it were)."""
-    from pecanpy_tpu_torch.ops import rejection, trialkernel
+    from pecanpy_tpu_torch.ops import trialkernel
 
     adj, cap = _hub_graph(7)
-    dg, draws, prev, cur_rows, prev_rows, alpha_np, theta, wp = _trial_inputs(
+    dg, draws, prev, cur, alpha_np, theta, wp = _trial_inputs(
         cuda, adj, cap, 777, 2, False, seed=7, hub_lanes=False)
-    assert not bool(dg.rows_is_hub(cur_rows).any())
-    got = trialkernel.trial_block_fused(
-        dg, draws, prev, cur_rows, prev_rows, 0.5, 2.0, alpha_np, theta, wp)
+    assert not bool(dg.rows_is_hub(dg.gather_rows(cur)).any())
+    got = trialkernel.trial_block_fused(dg, draws, prev, cur, 0.5, 2.0, alpha_np, theta, wp)
     torch.cuda.synchronize()
-    want = rejection._trial_block(
-        dg, draws.trials(), prev, cur_rows, prev_rows, 0.5, 2.0, False, alpha_np, theta, wp)
-    _assert_bitwise(got, want)
+    _assert_bitwise(got, _plain_block(dg, draws, prev, cur, 0.5, 2.0, alpha_np, theta, wp))
 
 
 def test_trial_kernels_float_weights_with_cdf(cuda):
     """With the cdf channel, kernel and plain read the same floats and agree
     bit for bit on float weights too."""
-    from pecanpy_tpu_torch.ops import rejection, trialkernel
+    from pecanpy_tpu_torch.ops import trialkernel
 
     adj, cap = _hub_graph(3, float_weights=True, directed=True)
-    dg, draws, prev, cur_rows, prev_rows, alpha_np, theta, wp = _trial_inputs(
+    dg, draws, prev, cur, alpha_np, theta, wp = _trial_inputs(
         cuda, adj, cap, 4096, 2, True, seed=3)
     got = trialkernel.trial_block_fused(
-        dg, draws, prev, cur_rows, prev_rows, 0.5, 2.0, alpha_np, theta, wp, use_cdf=True)
-    want = rejection._trial_block(
-        dg, draws.trials(), prev, cur_rows, prev_rows, 0.5, 2.0, False, alpha_np, theta, wp,
-        use_cdf=True)
-    _assert_bitwise(got, want)
+        dg, draws, prev, cur, 0.5, 2.0, alpha_np, theta, wp, use_cdf=True)
+    _assert_bitwise(got, _plain_block(
+        dg, draws, prev, cur, 0.5, 2.0, alpha_np, theta, wp, use_cdf=True))
+
+
+def test_trial_kernels_float_weights_without_cdf(cuda):
+    """Without the cdf channel the group's prefix sum adds in another order
+    than torch.cumsum: on float weights at most 1e-3 of the lanes may
+    differ (a draw next to a category boundary), and the rest are equal."""
+    from pecanpy_tpu_torch.ops import trialkernel
+    from pecanpy_tpu_torch.ops.layout import device_csr_from_dense
+
+    adj = degree_graph(4, float_weights=True)
+    dg = device_csr_from_dense(adj, degree_cap=DEGREE_CAP, device=cuda)
+    cur_np, prev_np = degree_lanes(adj, 16384, seed=4)
+    cur = torch.from_numpy(cur_np).to(cuda)
+    prev = torch.from_numpy(prev_np).to(cuda)
+    draws, alpha_np, theta, wp = _lane_state(dg, cur, prev, 2, 4, 0.5, 2.0)
+    got = trialkernel.trial_block_fused(dg, draws, prev, cur, 0.5, 2.0, alpha_np, theta, wp)
+    want = _plain_block(dg, draws, prev, cur, 0.5, 2.0, alpha_np, theta, wp)
+    differ = torch.stack([a != b for a, b in zip(got, want)]).any(0)
+    assert int(differ.sum()) <= 1e-3 * cur.numel()
 
 
 @pytest.mark.parametrize("queued", [True, False])
@@ -694,23 +802,24 @@ def test_trial_kernels_at_draw_boundaries(cuda):
 
     p, q = 0.9, 0.3
     adj, cap = _hub_graph(5)
-    dg, draws, prev, cur_rows, prev_rows, alpha_np, theta, wp = _trial_inputs(
+    dg, draws, prev, cur, alpha_np, theta, wp = _trial_inputs(
         cuda, adj, cap, 2048, 1, True, seed=5, p=p, q=q)
     assert theta is None
+    cur_rows = dg.gather_rows(cur)
     is_hub = dg.rows_is_hub(cur_rows)
     on_cdf = torch.where(is_hub, 0.5, dg.rows_cdf(cur_rows)[:, 1])
     d = draws.trials()[0]._replace(u_small=on_cdf)
     one = rejection.RoundDraws.stack([d])
-    x_p, wx_p = trialkernel.trial_propose_plain(dg, one, prev, cur_rows, use_cdf=True)
-    x, wx = trialkernel.trial_propose(dg, one, prev, cur_rows, use_cdf=True)
+    x_p, wx_p = trialkernel.trial_propose_plain(dg, one, prev, cur, use_cdf=True)
+    x, wx = trialkernel.trial_propose(dg, one, prev, cur, use_cdf=True)
     _assert_bitwise((x, wx), (x_p, wx_p))
-    alpha = rejection._bias(dg, x[0], wx[0], prev, None, prev_rows, p, q, False)
+    alpha = rejection._bias(dg, x[0], wx[0], prev, None, dg.gather_rows(prev), p, q, False)
     accept = alpha / torch.full_like(alpha, alpha_np)
     assert bool((accept != alpha * (1.0 / alpha_np)).any())
     below = torch.arange(accept.numel(), device=cuda) % 2 == 1
     u_acc = torch.where(below, torch.nextafter(accept, torch.zeros_like(accept)), accept)
     one = rejection.RoundDraws.stack([d._replace(u_acc=u_acc)])
-    got = trialkernel.trial_accept(dg, one, x, wx, prev, prev_rows, p, q, alpha_np, False)
-    want = trialkernel.trial_accept_plain(dg, one, x, wx, prev, prev_rows, p, q, alpha_np, False)
+    got = trialkernel.trial_accept(dg, one, x, wx, prev, p, q, alpha_np, False)
+    want = trialkernel.trial_accept_plain(dg, one, x, wx, prev, p, q, alpha_np, False)
     _assert_bitwise(got, want)
     assert torch.equal(got[1], below)
