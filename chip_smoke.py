@@ -65,12 +65,37 @@ Phases (any failure raises, and the script exits non-zero):
       ``tocsr`` task, PreComp from the ``.csr.npz`` with the windowed
       applier (two runs byte-identical), and ``--task walks``;
    f. the block-model gate through PreComp with the windowed applier;
-8. prints the kernels JSON line, the ``nvidia-smi`` line, and last
+8. the quality protocol of ``benchmarks/bench_quality.py`` (the North
+   star's hold) at its own size, through the entry points:
+   a. ``utils/evaluate.py:overlapping_sbm`` (10,312 nodes, 39 overlapping
+      communities, seed 1) written as a 3-column ``.edg`` and read back by
+      the native C++ parser and by the Python parser, bit-equal;
+   b. ``SparseOTF(random_state=0)`` (p = q = 1), ``embed(dim=128,
+      num_walks=10, walk_length=80, window_size=10, epochs=1)`` with
+      ``table_dtype="auto"`` (f32 here): kernel 2.1 launches twice a
+      chunk-step and no other kernel launches; its walks follow the
+      uniform first-order law within ``LAW_SIGMAS``; scored by the node2vec
+      paper's protocol (one-vs-rest logistic regression on the card,
+      top-k, micro-F1, half the nodes for training): at least
+      ``QUALITY_GATE_BATCHED``;
+   c. the random-embedding floor of the same protocol: below
+      ``QUALITY_FLOOR_LIMIT``;
+   d. ``embed(trainer="sequential")`` on the same mode with
+      ``workers=0`` (hogwild over every host thread): at least
+      ``QUALITY_GATE_SEQUENTIAL``;
+   e. the hub tables of phase 6's graph from the native and the Python
+      builder, timed once each: hash tables byte-equal, each hub's alias
+      rows imply the same neighbour law within ``ALIAS_LAW_TOL``;
+   and prints one ``{"quality": {...}}`` JSON line;
+9. prints the kernels JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -101,6 +126,14 @@ HOT_ROW = 5_000  # entries of one id in phase 7a's hot-row stream
 BOUNDARY_ROW = 2_000  # entries of the id that crosses 7a's first block boundary
 SHORT_ROWS = 100  # rows of 7a's stream that is shorter than the windowed grid
 PRECOMP_LAW_WIDTH = 8  # PreComp table width on phase 7c's 40-node law graph
+# phase 8: the protocol of benchmarks/bench_quality.py (BlogCatalog's shape)
+QUALITY_NODES = 10_312
+QUALITY_COMMUNITIES = 39
+QUALITY_MEAN_DEGREE = 64.0
+QUALITY_GATE_BATCHED = 0.49  # the JAX package's f32 batched trainer: 0.5096
+QUALITY_GATE_SEQUENTIAL = 0.52  # the JAX package's sequential reference: 0.541
+QUALITY_FLOOR_LIMIT = 0.10  # the JAX package's random-embedding floor: 0.062
+ALIAS_LAW_TOL = 1e-6
 
 
 def log(msg):
@@ -1314,6 +1347,250 @@ def phase_precomp_quality():
         raise AssertionError(f"micro-F1 {f1:.4f}, {launches} windowed launches")
 
 
+def run_captured(fn, *args, **kwargs):
+    """Call ``fn``; returns (its result, what it printed). The printout is
+    logged as well."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args, **kwargs)
+    for line in buf.getvalue().splitlines():
+        log(f"    | {line}")
+    return result, buf.getvalue()
+
+
+def timer_seconds(text, name):
+    """The seconds of a ``wrappers.Timer`` line ``Took HH:MM:SS.ss to name``."""
+    m = re.search(r"Took (\d+):(\d+):([\d.]+) to " + re.escape(name) + "$", text, re.M)
+    if m is None:
+        raise AssertionError(f"no Timer line for {name!r} in the printout")
+    return int(m[1]) * 3600 + int(m[2]) * 60 + float(m[3])
+
+
+def sequential_pairs(text):
+    """(pairs, threads) from the sequential trainer's verbose line."""
+    m = re.search(r"sequential SGNS: (\d+) pairs on (\d+) thread\(s\)", text)
+    if m is None:
+        raise AssertionError("the sequential trainer printed no pair count")
+    return int(m[1]), int(m[2])
+
+
+def write_edg(path, indptr, indices):
+    """An undirected unit-weight CSR as a 3-column edgelist, each edge once."""
+    u = np.repeat(np.arange(indptr.size - 1), np.diff(indptr))
+    keep = u < indices
+    with open(path, "w") as f:
+        f.write("".join(f"{a}\t{b}\t1\n" for a, b in zip(u[keep], indices[keep])))
+
+
+def alias_law_error(edge_pack, hub_base, indptr, indices, data, hub_ids):
+    """Worst gap between the neighbour law that each hub's alias rows imply
+    (slot s gives its own neighbour acceptance q_s / k and its alias the
+    rest, (1 - q_s) / k) and the exact law w / sum(w)."""
+    counts = (indptr[hub_ids + 1] - indptr[hub_ids]).astype(np.int64)
+    hub_of = np.repeat(np.arange(hub_ids.size), counts)
+    edge = np.concatenate([np.arange(indptr[h], indptr[h + 1]) for h in hub_ids])
+    rows = edge_pack[np.concatenate([np.arange(b, b + k) for b, k in zip(hub_base, counts)])]
+    acc = rows[:, 0].astype(np.float64)
+    alias_nbr = rows.view(np.int32)[:, 3].astype(np.int64)
+    n = int(indptr.size)
+    keys = hub_of * n + indices[edge].astype(np.int64)  # ascending: sorted rows
+    alias_pos = np.searchsorted(keys, hub_of * n + alias_nbr)
+    if not np.array_equal(keys[alias_pos], hub_of * n + alias_nbr):
+        raise AssertionError("an alias slot names a node outside its hub's row")
+    k = counts[hub_of].astype(np.float64)
+    law = acc / k + np.bincount(alias_pos, (1.0 - acc) / k, minlength=keys.size)
+    w = data[edge].astype(np.float64)
+    wsum = np.bincount(hub_of, w)[hub_of]
+    return float(np.abs(law - w / wsum).max())
+
+
+def sparse_first_order_worst(walks, eff, indptr, indices, min_count=400):
+    """Empirical cur -> next frequencies of unit-weight walks against the
+    uniform law over cur's neighbours, from the CSR (no dense matrix):
+    (nodes checked, worst deviation in binomial sigma)."""
+    n = indptr.size - 1
+    valid = np.arange(walks.shape[1] - 1)[None, :] < (eff[:, None] - 1)
+    cur = walks[:, :-1][valid].astype(np.int64)
+    keys = cur * n + walks[:, 1:][valid]
+    row_of_edge = np.repeat(np.arange(n), np.diff(indptr))
+    edge_keys = row_of_edge * n + indices.astype(np.int64)  # sorted (CSR)
+    pos = np.searchsorted(edge_keys, keys)
+    if not np.array_equal(edge_keys[np.minimum(pos, edge_keys.size - 1)], keys):
+        raise AssertionError("a walk step is not an edge")
+    per_edge = np.bincount(pos, minlength=edge_keys.size)
+    tot = np.bincount(cur, minlength=n)[row_of_edge]
+    deg = np.diff(indptr)[row_of_edge]
+    ok = tot >= min_count
+    dev = np.abs(per_edge[ok] / tot[ok] - 1.0 / deg[ok]) / np.sqrt(0.25 / tot[ok])
+    return int(np.unique(row_of_edge[ok]).size), float(dev.max())
+
+
+def phase_quality(tmp):
+    """8: the quality protocol of ``benchmarks/bench_quality.py`` through
+    the port's entry points; returns the ``quality`` record."""
+    import torch
+
+    from pecanpy_tpu_torch import pecanpy
+    from pecanpy_tpu_torch.graph import SparseGraph
+    from pecanpy_tpu_torch.models import sgns
+    from pecanpy_tpu_torch.native import loader
+    from pecanpy_tpu_torch.ops import apply as apply_lib
+    from pecanpy_tpu_torch.ops import hubs, trialkernel
+    from pecanpy_tpu_torch.ops.layout import DEFAULT_DEGREE_CAP
+    from pecanpy_tpu_torch.utils import evaluate
+
+    record = {}
+    # -- a. the graph, through the native and the Python parser ----------
+    t0 = time.perf_counter()
+    indptr, indices, _, labels = evaluate.overlapping_sbm(
+        n=QUALITY_NODES, n_communities=QUALITY_COMMUNITIES,
+        mean_degree=QUALITY_MEAN_DEGREE, seed=1)
+    path = os.path.join(tmp, "quality_sbm.edg")
+    write_edg(path, indptr, indices)
+    log(f"[8a quality] overlapping SBM: {QUALITY_NODES} nodes, {indices.size} directed "
+        f"edges, max degree {int(np.diff(indptr).max())}, {QUALITY_COMMUNITIES} labels, "
+        f"{labels.sum(1).mean():.2f} a node; built + written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    if not loader.native_available():
+        raise AssertionError("the native library did not build")
+    build_s = time.perf_counter() - t0
+    g = pecanpy.SparseOTF(random_state=0, workers=0, device="cuda")
+    t0 = time.perf_counter()
+    g.read_edg(path, weighted=True, directed=False, engine="native")
+    native_s = time.perf_counter() - t0
+    py = SparseGraph()
+    t0 = time.perf_counter()
+    py.read_edg(path, weighted=True, directed=False, engine="python")
+    python_s = time.perf_counter() - t0
+    for name in ("indptr", "indices", "data"):
+        a, b = getattr(g, name), getattr(py, name)
+        if a.dtype != b.dtype or not np.array_equal(a.view(np.uint32), b.view(np.uint32)):
+            raise AssertionError(f"native and Python parsers differ in {name}")
+    if g.nodes != py.nodes or g.num_edges != indices.size:
+        raise AssertionError(f"IDs differ or {g.num_edges} edges (want {indices.size})")
+    labels = labels[np.array([int(x) for x in g.nodes])]  # rows follow g.nodes
+    record["parse_s"] = {"native": native_s, "python": python_s, "native_build": build_s}
+    log(f"[8a quality] native library built and loaded in {build_s:.2f} s from "
+        f"{os.path.relpath(loader.NATIVE_DIR, REPO)} into "
+        f"{os.path.relpath(loader.BUILD_DIR, REPO)}; read_edg: native {native_s:.4f} s, "
+        f"python {python_s:.4f} s; CSR and IDs bit-equal")
+
+    # -- b. the batched trainer, every update through kernel 2.1 ---------
+    walk_cols = WALK_LENGTH + 1
+    config = sgns.SGNSConfig(dim=DIM, window=WINDOW, seed=0)
+    dtype = sgns.resolve_table_dtype(config, g.num_nodes, "cuda")
+    if dtype != torch.float32:
+        raise AssertionError(f"tables resolved to {dtype}, expected float32")
+    chunk = sgns.resolve_batch_walks(config, g.num_nodes, walk_cols)
+    chunk_steps = -(-10 * g.num_nodes // chunk)
+    apply_lib.apply_sorted_stream.launches = 0
+    apply_lib.apply_sorted_stream_windowed.launches = 0
+    trialkernel.trial_propose.launches = trialkernel.trial_accept.launches = 0
+    t0 = time.perf_counter()
+    emb, text = run_captured(
+        g.embed, dim=DIM, num_walks=10, walk_length=WALK_LENGTH, window_size=WINDOW,
+        epochs=1, table_dtype="auto", verbose=True)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    launches = {
+        "apply_sorted_stream": apply_lib.apply_sorted_stream.launches,
+        "apply_sorted_stream_windowed": apply_lib.apply_sorted_stream_windowed.launches,
+        "trial_propose": trialkernel.trial_propose.launches,
+        "trial_accept": trialkernel.trial_accept.launches,
+    }
+    if launches != {"apply_sorted_stream": 2 * chunk_steps, "apply_sorted_stream_windowed": 0,
+                    "trial_propose": 0, "trial_accept": 0}:
+        raise AssertionError(f"launches {launches}, want 2 x {chunk_steps} of kernel 2.1 only")
+    if emb.shape != (g.num_nodes, DIM) or not np.isfinite(emb).all():
+        raise AssertionError(f"embeddings {emb.shape}, finite {np.isfinite(emb).all()}")
+    walk_s = timer_seconds(text, "generate walks")
+    train_s = timer_seconds(text, "train embeddings")
+    walks, eff = g.simulate_walks_device(10, WALK_LENGTH)  # the walks embed trained on
+    checked, worst = sparse_first_order_worst(walks.cpu().numpy(), eff.cpu().numpy(),
+                                              g.indptr, g.indices)
+    log(f"[8b quality] walks (p = q = 1): {checked} nodes, worst cur -> next frequency "
+        f"{worst:.2f} binomial sigma from the uniform law (limit {LAW_SIGMAS})")
+    if checked < QUALITY_NODES // 2 or worst > LAW_SIGMAS:
+        raise AssertionError(f"quality walks' law: {checked} nodes, worst {worst:.2f} sigma")
+    del walks, eff
+    t0 = time.perf_counter()
+    f1 = evaluate.multilabel_node_classification(emb, labels, train_fraction=0.5, seed=0,
+                                                 device="cuda")
+    eval_s = time.perf_counter() - t0
+    record["batched"] = {
+        "micro_f1": f1, "gate": QUALITY_GATE_BATCHED, "epochs": 1, "table_dtype": "float32",
+        "embed_s": embed_s, "walk_s": walk_s, "train_s": train_s, "eval_s": eval_s,
+        "walks_per_chunk_step": chunk, "chunk_steps": chunk_steps,
+        "chunk_step_ms": 1e3 * train_s / chunk_steps, "launches": launches}
+    log(f"[8b quality] batched f32: micro-F1 {f1:.4f} (gate {QUALITY_GATE_BATCHED}); embed "
+        f"{embed_s:.2f} s (walks {walk_s:.2f} s, training {train_s:.2f} s: {chunk_steps} "
+        f"chunk-steps of {chunk} walks, {1e3 * train_s / chunk_steps:.3f} ms each); kernel "
+        f"2.1 launches {launches['apply_sorted_stream']}, no other kernel; eval {eval_s:.2f} s")
+    if f1 < QUALITY_GATE_BATCHED:
+        raise AssertionError(f"batched micro-F1 {f1:.4f} below {QUALITY_GATE_BATCHED}")
+
+    # -- c. the random-embedding floor ------------------------------------
+    rand = np.random.default_rng(9).standard_normal(emb.shape).astype(np.float32)
+    floor = evaluate.multilabel_node_classification(rand, labels, train_fraction=0.5, seed=0,
+                                                    device="cuda")
+    record["floor"] = {"micro_f1": floor, "limit": QUALITY_FLOOR_LIMIT}
+    log(f"[8c quality] random-embedding floor: micro-F1 {floor:.4f} (limit "
+        f"{QUALITY_FLOOR_LIMIT})")
+    if floor >= QUALITY_FLOOR_LIMIT:
+        raise AssertionError(f"random-embedding floor {floor:.4f} not below {QUALITY_FLOOR_LIMIT}")
+    del emb
+
+    # -- d. the sequential trainer, hogwild over every host thread --------
+    t0 = time.perf_counter()
+    emb_s, text = run_captured(
+        g.embed, dim=DIM, num_walks=10, walk_length=WALK_LENGTH, window_size=WINDOW,
+        epochs=1, trainer="sequential", verbose=True)
+    seq_s = time.perf_counter() - t0
+    pairs, threads = sequential_pairs(text)
+    train_s = timer_seconds(text, "train embeddings (sequential)")
+    if emb_s.shape != (g.num_nodes, DIM) or not np.isfinite(emb_s).all():
+        raise AssertionError(f"sequential embeddings {emb_s.shape}")
+    f1_s = evaluate.multilabel_node_classification(emb_s, labels, train_fraction=0.5, seed=0,
+                                                   device="cuda")
+    record["sequential"] = {
+        "micro_f1": f1_s, "gate": QUALITY_GATE_SEQUENTIAL, "threads": threads,
+        "embed_s": seq_s, "train_s": train_s, "pairs": pairs, "pairs_per_s": pairs / train_s}
+    log(f"[8d quality] sequential, {threads} hogwild threads: micro-F1 {f1_s:.4f} (gate "
+        f"{QUALITY_GATE_SEQUENTIAL}); {pairs} pairs in {train_s:.2f} s of training "
+        f"({pairs / train_s:.4e} pairs/s), embed {seq_s:.2f} s")
+    if f1_s < QUALITY_GATE_SEQUENTIAL:
+        raise AssertionError(f"sequential micro-F1 {f1_s:.4f} below {QUALITY_GATE_SEQUENTIAL}")
+    del g, emb_s
+
+    # -- e. the hub builders on phase 6's graph ---------------------------
+    raw = np.load(os.path.join(tmp, "powerlaw_graph.csr.npz"))
+    p_indptr, p_indices, p_data = raw["indptr"], raw["indices"], raw["data"]
+    hub_ids = np.nonzero(np.diff(p_indptr) > DEFAULT_DEGREE_CAP)[0].astype(np.int32)
+    t0 = time.perf_counter()
+    nat = loader.build_hub_tables_native(p_indptr, p_indices, p_data, hub_ids)
+    hub_native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pyt = hubs.build_python(p_indptr, p_indices, p_data, hub_ids)
+    hub_python_s = time.perf_counter() - t0
+    for i, name in ((1, "hub_base"), (2, "hkey8"), (3, "hval8"), (4, "bucket_base"),
+                    (5, "bucket_log")):
+        if nat[i].dtype != pyt[i].dtype or nat[i].tobytes() != pyt[i].tobytes():
+            raise AssertionError(f"native and Python hub builders differ in {name}")
+    law_err = max(alias_law_error(t[0], t[1], p_indptr, p_indices, p_data, hub_ids)
+                  for t in (nat, pyt))
+    record["hub_build_s"] = {"native": hub_native_s, "python": hub_python_s,
+                             "hubs": int(hub_ids.size), "hub_edges": int(nat[0].shape[0]),
+                             "alias_law_max_err": law_err}
+    log(f"[8e hubs] {hub_ids.size} hubs, {nat[0].shape[0]} hub edges: native builder "
+        f"{hub_native_s:.3f} s, Python {hub_python_s:.3f} s ({hub_python_s / hub_native_s:.1f}x); "
+        f"hash tables byte-equal, alias laws within {law_err:.2e} of the exact law "
+        f"(limit {ALIAS_LAW_TOL:g})")
+    if law_err > ALIAS_LAW_TOL:
+        raise AssertionError(f"alias law error {law_err:.2e} above {ALIAS_LAW_TOL}")
+    return record
+
+
 def main():
     import torch
 
@@ -1339,6 +1616,10 @@ def main():
         phase_n2vpp_and_cli(tmp)
         phase_precomp_quality()
         log(f"[7] phase 7 took {time.perf_counter() - t7:.1f} s")
+        t8 = time.perf_counter()
+        quality = phase_quality(tmp)
+        quality["phase_s"] = time.perf_counter() - t8
+        log(f"[8] phase 8 took {quality['phase_s']:.1f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     r_out = 1235 * (WALK_LENGTH + 1) + NEG_POOL
@@ -1366,6 +1647,7 @@ def main():
         "library_ms": r["library_ms"],
     } for name, src, tpu, n, r in rows]}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"quality": quality}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,10 @@ The tasks of ``pecanpy_tpu/cli.py`` with the same flag names, plus
 the embeddings as ``.npz`` with keys IDs/data or as word2vec text), the
 conversions ``tocsr`` / ``todense``, and ``walks`` (the raw walks, one
 per line). Every walk mode runs, and the experimental
-``Node2vecPlusPlus`` too. ``--profile``, ``--trainer sequential``,
-``--checkpoint-dir`` and ``--devices`` above 1 raise
-``NotImplementedError`` naming ROADMAP.md.
+``Node2vecPlusPlus`` too. ``--trainer sequential`` walks on ``--device``
+and trains on the host over ``--workers`` threads (the native gensim
+loop). ``--profile``, ``--checkpoint-dir`` and ``--devices`` above 1
+raise ``NotImplementedError`` naming ROADMAP.md.
 
 Example::
 
@@ -78,7 +79,11 @@ def parse_args(argv=None):
         "--epochs", type=int, default=1, help="Number of SGNS training epochs."
     )
     parser.add_argument(
-        "--workers", type=int, default=0, help="Kept for flag parity; unused."
+        "--workers",
+        type=int,
+        default=0,
+        help="Host threads of --trainer sequential (hogwild); 0 uses "
+        "every host CPU.",
     )
     parser.add_argument("--p", type=float, default=1, help="node2vec return parameter (bias 1/p toward the previous node).")
     parser.add_argument("--q", type=float, default=1, help="node2vec in-out parameter (bias 1/q on outward edges).")
@@ -146,7 +151,10 @@ def parse_args(argv=None):
         choices=["tpu", "sequential"],
         default="tpu",
         help="SGNS implementation: 'tpu' is the batched device trainer "
-        "(here on --device); 'sequential' is not ported yet.",
+        "(here on --device); 'sequential' walks on --device, then trains "
+        "on host threads (native C++, hogwild over --workers threads) "
+        "with gensim's exact sequential loop: the quality reference, "
+        "at host CPU speed, for small graphs.",
     )
     parser.add_argument("--checkpoint-dir", default=None, help="Not ported yet.")
     parser.add_argument(
@@ -335,6 +343,24 @@ def main(argv=None):
     preprocess(g)
     if args.task == "walks":
         Timer("generate walks", args.verbose)(export_walks)(args, g)
+        return
+    if args.trainer == "sequential":
+        if args.devices is not None and args.devices > 1:
+            raise ValueError(
+                "--trainer sequential runs on the host; it cannot be "
+                "combined with --devices"
+            )
+        embeddings = Timer("walks + train embeddings", args.verbose)(g.embed)(
+            dim=args.dimensions,
+            num_walks=args.num_walks,
+            walk_length=args.walk_length,
+            window_size=args.window_size,
+            epochs=args.epochs,
+            verbose=args.verbose,
+            trainer="sequential",
+            checkpoint_dir=args.checkpoint_dir,  # embed() rejects it
+        )
+        save_embeddings(args.output, g.nodes, embeddings)
         return
     total_tokens = g.num_nodes * args.num_walks * (args.walk_length + 1)
     streaming = args.streaming == "on" or (

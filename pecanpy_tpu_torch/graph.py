@@ -1,8 +1,9 @@
 """Host-side graph containers and I/O.
 
 Copied from ``pecanpy_tpu/graph.py``: that package cannot be imported
-without jax. Only the pure-Python edgelist parser came along; the native
-C++ parser (``read_edg(engine="native")``) is not ported yet and raises.
+without jax. ``read_edg`` parses with the native C++ parser of
+``pecanpy_tpu_torch.native`` when it builds, else with the pure-Python
+parser; both give the same CSR.
 
 This layer is deliberately plain numpy/Python: it parses edge lists, builds
 CSR / dense adjacency containers, and manages the node-ID registry. Device
@@ -294,19 +295,29 @@ class SparseGraph(BaseGraph):
         """Parse an edge list and store it in CSR form.
 
         Args:
-            engine: ``"auto"`` and ``"python"`` run the reference-parity
-                pure-Python parser (per-edge warnings). ``"native"`` names
-                the C++ parser of the JAX package, which this package does
-                not carry yet (ROADMAP, "Modules to port"); it raises.
+            engine: ``"auto"`` uses the native C++ parser when it is
+                available (``pecanpy_tpu_torch.native``, built with g++ at
+                first use), falling back to the pure-Python path.
+                ``"python"`` forces the reference-parity parser (per-edge
+                warnings); ``"native"`` requires the C++ parser and raises
+                ``RuntimeError`` without it. Both produce identical CSR
+                output; the native parser reports dropped and duplicate
+                edges as two summary warnings.
         """
         if engine not in ("auto", "python", "native"):
             raise ValueError(f"unknown engine {engine!r}")
-        if engine == "native":
-            raise NotImplementedError(
-                "the native C++ edgelist parser is not ported yet (ROADMAP "
-                "'Modules to port'); use engine='python', which builds the "
-                "identical CSR"
-            )
+        if engine in ("auto", "native"):
+            from pecanpy_tpu_torch.native import loader
+
+            if loader.native_available():
+                indptr, indices, data, ids = loader.parse_edgelist_native(
+                    path, weighted, directed, delimiter
+                )
+                self.set_node_ids(ids)
+                self.indptr, self.indices, self.data = indptr, indices, data
+                return
+            if engine == "native":
+                raise RuntimeError("native parser unavailable")
         adj = AdjlstGraph()
         adj.read(path, weighted, directed, delimiter)
         self.set_node_ids(adj.nodes)

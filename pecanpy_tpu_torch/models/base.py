@@ -5,7 +5,8 @@ Counterpart of ``pecanpy_tpu/models/base.py``: the constructor parameters
 ``simulate_walks`` / ``embed`` entry points and the one-shot
 ``preprocess_transition_probs`` hook, plus an explicit ``device``. Walks
 run batched on the device (``models/engine.py``); embeddings train with
-the batched SGNS trainer (``models/sgns.py``).
+the batched SGNS trainer (``models/sgns.py``) on this mode's device, or
+with ``trainer="sequential"`` on the host with the native gensim loop.
 
 Reproducibility: a fixed ``random_state`` fixes the start-node shuffle
 (the same numpy shuffle as the JAX package, so walk *sets* line up) and
@@ -53,7 +54,8 @@ class Base(BaseGraph):
     Args:
         p: return parameter (bias 1/p on the edge back to the previous node).
         q: in-out parameter (bias 1/q on edges leaving prev's neighborhood).
-        workers: kept for reference API parity; unused.
+        workers: host threads of ``embed(trainer="sequential")``
+            (hogwild); 0 or less means every host CPU.
         verbose: print stage timings / progress.
         extend: use the node2vec+ extended transition weights.
         gamma: node2vec+ noise-threshold std multiplier.
@@ -287,8 +289,15 @@ class Base(BaseGraph):
         stops after that many chunk-steps; the lr schedule stays pinned
         to the full plan.
 
+        ``trainer="sequential"`` walks on this mode's device, then trains
+        on the host with gensim's exact sequential loop (native C++,
+        hogwild over ``self.workers`` threads): the quality reference, at
+        host CPU speed, for small graphs. It takes neither
+        ``n_devices > 1``, ``streaming=True`` nor ``checkpoint_dir``
+        (``ValueError``).
+
         Not ported yet, and raising ``NotImplementedError``:
-        ``n_devices > 1``, ``trainer="sequential"`` and ``checkpoint_dir``.
+        ``n_devices > 1`` and ``checkpoint_dir``.
         """
         from pecanpy_tpu_torch.models import sgns
 
@@ -301,14 +310,28 @@ class Base(BaseGraph):
                 f"unknown partition {partition!r}; use 'auto', "
                 "'replicated', or 'edge'"
             )
+        sequential = trainer == "sequential"
+        if sequential:
+            if n_devices is not None and n_devices > 1:
+                raise ValueError(
+                    "trainer='sequential' runs on the host; it cannot be "
+                    "combined with n_devices > 1"
+                )
+            if streaming:
+                raise ValueError(
+                    "trainer='sequential' trains on materialized host "
+                    "walks; it cannot honor streaming=True (drop one of "
+                    "the two)"
+                )
+            if checkpoint_dir is not None:
+                raise ValueError(
+                    "trainer='sequential' (the host gensim loop) has no "
+                    "checkpoint/resume support; use the batched trainer"
+                )
         if n_devices is not None and n_devices > 1:
             raise NotImplementedError(
                 f"n_devices > 1: multi-device training is not ported yet "
                 f"({ROADMAP_SLICES}, slice D)"
-            )
-        if trainer == "sequential":
-            raise NotImplementedError(
-                f"trainer='sequential' is not ported yet ({ROADMAP_SLICES})"
             )
         if checkpoint_dir is not None:
             raise NotImplementedError(
@@ -325,7 +348,15 @@ class Base(BaseGraph):
             batch_walks=batch_walks,
         )
         total_tokens = self.num_nodes * num_walks * (walk_length + 1)
-        if epochs == 1 and total_tokens <= 5e7:
+        if sequential and total_tokens > 5e7:
+            warnings.warn(
+                f"trainer='sequential' trains ~{total_tokens:.1e} tokens on "
+                "host CPU threads: expect minutes to hours; the batched "
+                "trainer is about two orders of magnitude faster at this "
+                "scale",
+                stacklevel=2,
+            )
+        if not sequential and epochs == 1 and total_tokens <= 5e7:
             # advisory only, as in the JAX package: there the batched
             # trainer's per-epoch quality trailed the sequential reference
             # at small corpus scale and epochs=2 closed the gap
@@ -339,7 +370,7 @@ class Base(BaseGraph):
 
         if streaming is None:
             streaming = total_tokens > self.STREAMING_TOKEN_THRESHOLD
-        if streaming:
+        if streaming and not sequential:
 
             def walk_chunks(_pass):
                 return self._walk_chunks(num_walks, walk_length)
@@ -354,6 +385,14 @@ class Base(BaseGraph):
 
         timed_walk = Timer("generate walks", verbose)(self.simulate_walks_device)
         walks, eff_len = timed_walk(num_walks, walk_length)
+        if sequential:
+            timed_train = Timer("train embeddings (sequential)", verbose)(
+                sgns.train_sequential
+            )
+            return timed_train(
+                walks, eff_len, self.num_nodes, config,
+                workers=self.workers, verbose=verbose,
+            )
         timed_train = Timer("train embeddings", verbose)(sgns.train)
         return timed_train(
             walks, eff_len, self.num_nodes, config,

@@ -675,3 +675,82 @@ def train_streaming(
                 f"{done_tokens:.3e} tokens trained"
             )
     return w_in.to(torch.float32).cpu().numpy()
+
+
+def train_sequential(
+    walks,
+    eff_len,
+    num_nodes: int,
+    config: SGNSConfig = SGNSConfig(),
+    workers: int = 1,
+    verbose: bool = False,
+) -> np.ndarray:
+    """Host-side sequential SGNS (gensim loop semantics) on device walks.
+
+    Port of ``pecanpy_tpu/models/sgns.py:train_sequential``. The quality
+    reference trainer: per-pair immediate updates, per-token linear lr
+    decay, reduced windows, subsampling, unigram^0.75 negatives with
+    collision skip, run by the native C++ trainer
+    (``native/seqsgns.cpp``). ``workers>1`` races hogwild threads like
+    gensim's worker threads (nondeterministic). It runs at host CPU speed,
+    so it suits small graphs (below ~5e7 tokens).
+
+    Args:
+        walks: [W, T] int32 walk matrix (a device tensor or host array).
+        eff_len: [W] int32 effective walk lengths.
+        num_nodes: vocabulary size N.
+        config: hyperparameters (the batched trainer's object;
+            ``table_dtype``, ``neg_pool``, ``update_cap`` and
+            ``batch_walks`` are batched-trainer knobs and are ignored).
+        workers: hogwild threads; 0 or less resolves to all host CPUs.
+
+    Returns:
+        [N, dim] float32 input-embedding matrix, row i = node i.
+    """
+    import os
+
+    from pecanpy_tpu_torch.native.loader import (
+        native_available,
+        train_sgns_sequential_native,
+    )
+
+    if not native_available():
+        raise RuntimeError(
+            "trainer='sequential' needs the native toolchain (g++) to "
+            "build pecanpy_tpu_torch/native/seqsgns.cpp; use the default "
+            "batched trainer instead"
+        )
+    if isinstance(walks, torch.Tensor):
+        walks, eff_len = walks.cpu().numpy(), eff_len.cpu().numpy()
+    walks = np.ascontiguousarray(walks, dtype=np.int32)
+    eff_len = np.ascontiguousarray(eff_len, dtype=np.int32)
+    if workers is None or workers <= 0:
+        workers = os.cpu_count() or 1
+    seed = config.seed if config.seed is not None else 0
+
+    valid = np.arange(walks.shape[1])[None, :] < eff_len[:, None]
+    counts = np.bincount(walks[valid], minlength=num_nodes).astype(np.float32)
+    keep_prob = _keep_probs(torch.from_numpy(counts), config.sample).numpy()
+    neg_table = build_negative_table(counts, seed=seed)
+
+    rng_init = np.random.default_rng(seed)
+    w_in = rng_init.uniform(
+        -0.5 / config.dim, 0.5 / config.dim, (num_nodes, config.dim)
+    ).astype(np.float32)
+    w_out = np.zeros((num_nodes, config.dim), dtype=np.float32)
+
+    total_tokens = float(eff_len.sum()) * config.epochs
+    t0 = time.perf_counter()
+    pairs = train_sgns_sequential_native(
+        walks, eff_len, w_in, w_out, keep_prob, neg_table,
+        config.window, config.negative, config.alpha, config.min_alpha,
+        total_tokens, config.epochs, seed, workers=workers,
+    )
+    if verbose:
+        dt = max(time.perf_counter() - t0, 1e-9)
+        print(
+            f"sequential SGNS: {pairs} pairs on {workers} thread(s) "
+            f"({pairs / dt:.2e} pairs/s)",
+            flush=True,
+        )
+    return w_in

@@ -1,10 +1,11 @@
 """Host-side builders for the hub (high-degree) node structures.
 
 Copied from ``pecanpy_tpu/ops/hubs.py`` (constants, ``hub_hash``,
-``_vose_alias``, ``build_edge_pack``, ``build_bucket_hash`` and the int32
-address guards of ``build_hub_structures``), with the Python builders
-only: the JAX package's native C++ builder is not ported yet (ROADMAP.md,
-item 11).
+``_vose_alias``, ``build_edge_pack``, ``build_bucket_hash`` and
+``build_hub_structures`` with its int32 address guards).
+``build_hub_structures`` runs the native C++ builder
+(``native/hubtables.cpp``) and takes the Python builders only when the
+native library cannot be built.
 
 Nodes whose degree exceeds ``degree_cap`` leave the fused table and are
 served by two O(E_hub) flat structures:
@@ -160,15 +161,25 @@ def build_bucket_hash(
 
 
 def build_hub_structures(indptr, indices, data, hub_ids):
-    """All hub structures in one call (the Python builders).
+    """All hub structures in one call, native (C++) when available.
 
     Returns (edge_pack, hub_base, hkey8, hval8, bucket_base, bucket_log).
+    The native builder (``native/hubtables.cpp``) is the JAX package's
+    (12x faster than the Python builders on the 1M-node power-law graph
+    of ``chip_smoke.py``, PERF.md); its hash tables are byte-identical to
+    theirs, and its alias rows are an equally exact Vose construction
+    whose ties near q == 1 can differ (it sums the weights in another
+    order). The Python builders run only when the
+    native library cannot be built (a warning says why); an error raised
+    inside the native builder propagates.
 
     Raises ValueError when the hub-edge or bucket address space exceeds
     int32 range: ``hub_base``/``bucket_base`` (and the marker slots packed
     into the fused rows) are int32 offsets, and the samplers compute
     ``base + slot`` in int32.
     """
+    from pecanpy_tpu_torch.native import loader
+
     total_hub_edges = int(
         (np.asarray(indptr)[np.asarray(hub_ids) + 1]
          - np.asarray(indptr)[np.asarray(hub_ids)]).sum()
@@ -178,13 +189,23 @@ def build_hub_structures(indptr, indices, data, hub_ids):
             f"hub edge total {total_hub_edges} exceeds the int32 address "
             "space of the packed alias rows; raise degree_cap"
         )
+    if loader.native_available():
+        result = loader.build_hub_tables_native(indptr, indices, data, hub_ids)
+    else:
+        result = build_python(indptr, indices, data, hub_ids)
+    if result[2].shape[0] >= 2**31:
+        raise ValueError(
+            f"hub bucket total {result[2].shape[0]} exceeds the int32 address "
+            "space of the neighbor hash tables"
+        )
+    return result
+
+
+def build_python(indptr, indices, data, hub_ids):
+    """The hub structures from the Python builders, in the order of
+    ``build_hub_structures``."""
     edge_pack, hub_base = build_edge_pack(indptr, indices, data, hub_ids)
     hkey8, hval8, bucket_base, bucket_log = build_bucket_hash(
         indptr, indices, data, hub_ids
     )
-    if hkey8.shape[0] >= 2**31:
-        raise ValueError(
-            f"hub bucket total {hkey8.shape[0]} exceeds the int32 address "
-            "space of the neighbor hash tables"
-        )
     return edge_pack, hub_base, hkey8, hval8, bucket_base, bucket_log

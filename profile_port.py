@@ -2,7 +2,7 @@
 """Where the PyTorch port's time goes, on one NVIDIA GPU.
 
     python3 profile_port.py [--out chiprun_out/profile_port.txt]
-                            [--sections walks,sgns,hub,precomp,apply,apply-sweep,trial-sweep]
+                            [--sections walks,sgns,hub,precomp,apply,apply-sweep,trial-sweep,quality]
                             [--trial-baseline OLD_TRIAL_CU]
 
 Runs the configurations of ``chip_smoke.py`` (p=0.5, q=2, walks of 80
@@ -36,7 +36,14 @@ steps) and measures these steady-state windows:
   gathered rows, e.g. ``git show dfb011c:pecanpy_tpu_torch/csrc/trial.cu``),
   from the committed source, and with other values of its constants
   (``TRIAL_SWEEP``), each build in a process of its own, in turns; every
-  build is held bit-equal to the plain halves before it is timed.
+  build is held bit-equal to the plain halves before it is timed;
+- quality: ``chip_smoke.py`` phase 8's protocol graph (10,312 nodes, read
+  by the native parser), the two arms too slow for every smoke run: the
+  batched trainer at epochs=2 and the sequential trainer on one thread
+  (the strictly sequential reference), each scored by the protocol's
+  micro-F1 (and at split seeds 0-4, the spread of the split alone) with
+  its seconds; then the SGNS window on that graph's walks
+  (13 walks a chunk-step, f32 tables).
 
 Each window is timed twice: on the host clock with a synchronize at each
 end (ms per step, rate), and under ``torch.profiler`` (device time by
@@ -105,7 +112,7 @@ def main():
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "profile_port.txt"))
     ap.add_argument("--sections", default="walks,sgns,hub,precomp",
                     help="comma-separated subset of walks, sgns, hub, precomp, apply, "
-                         "apply-sweep, trial-sweep")
+                         "apply-sweep, trial-sweep, quality")
     ap.add_argument("--apply-lib", help="with --sections apply-lib: time kernel 2.1 "
                     "from this build of the library (the sweep's own processes)")
     ap.add_argument("--trial-baseline", help="with --sections trial-sweep: an earlier "
@@ -146,6 +153,8 @@ def main():
             profile_main(tmp, out, sections)
         if "hub" in sections:
             profile_hub(tmp, out)
+        if "quality" in sections:
+            profile_quality(tmp, out)
         log(f"[done] op tables in {os.path.relpath(args.out, REPO)}")
 
 
@@ -228,24 +237,26 @@ def profile_walks(g, label, out):
     return walks, eff
 
 
-def profile_sgns(walks, eff, label, out):
+def profile_sgns(walks, eff, label, out, num_nodes=None):
     """``WINDOW_STEPS`` chunk-steps of the SGNS step ``sgns.train`` runs,
-    set up the way ``train`` sets it up, on ``walks``. Returns the
+    set up the way ``train`` sets it up, on ``walks`` of a graph of
+    ``num_nodes`` nodes (default: the main path's). Returns the
     ``run(first step, count)`` callable it timed."""
     import torch
 
     from chip_smoke import DIM, NODES, WINDOW
     from pecanpy_tpu_torch.models import sgns
 
+    n = num_nodes or NODES
     config = sgns.SGNSConfig(dim=DIM, window=WINDOW, seed=0)
-    counts = sgns._count_tokens(walks, eff, NODES)
+    counts = sgns._count_tokens(walks, eff, n)
     keep_prob = sgns._keep_probs(counts, config.sample)
     neg_table = torch.from_numpy(
         sgns.build_negative_table(counts.cpu().numpy(), seed=0)).cuda()
-    dtype = sgns.resolve_table_dtype(config, NODES, "cuda")
-    w_in, w_out = sgns.init_tables(0, NODES, DIM, dtype, "cuda")
-    chunk = sgns.resolve_batch_walks(config, NODES, walks.shape[1])
-    step = sgns.make_step_body(NODES, config)
+    dtype = sgns.resolve_table_dtype(config, n, "cuda")
+    w_in, w_out = sgns.init_tables(0, n, DIM, dtype, "cuda")
+    chunk = sgns.resolve_batch_walks(config, n, walks.shape[1])
+    step = sgns.make_step_body(n, config)
     t = walks.shape[1]
     eff_host = eff.cpu().numpy()
 
@@ -653,6 +664,67 @@ def cold_kernel_ms(fn, name, reps=20):
         if us > 0:
             return us / 1e3 / reps
     raise RuntimeError(f"torch.profiler recorded no {name} kernel in three sessions")
+
+
+def profile_quality(tmp, out):
+    """The quality protocol's slow arms and its SGNS window (see the module
+    docstring); prints one ``{"quality_profile": ...}`` JSON line."""
+    import json
+
+    import torch
+
+    from chip_smoke import (
+        DIM, QUALITY_COMMUNITIES, QUALITY_MEAN_DEGREE, QUALITY_NODES, WALK_LENGTH, WINDOW,
+        run_captured, sequential_pairs, timer_seconds, write_edg,
+    )
+    from pecanpy_tpu_torch import pecanpy
+    from pecanpy_tpu_torch.utils import evaluate
+
+    indptr, indices, _, labels = evaluate.overlapping_sbm(
+        n=QUALITY_NODES, n_communities=QUALITY_COMMUNITIES,
+        mean_degree=QUALITY_MEAN_DEGREE, seed=1)
+    path = os.path.join(tmp, "quality_sbm.edg")
+    write_edg(path, indptr, indices)
+    g = pecanpy.SparseOTF(random_state=0, workers=1, device="cuda")
+    g.read_edg(path, weighted=True, directed=False, engine="native")
+    labels = labels[np.array([int(x) for x in g.nodes])]
+    record = {}
+
+    def score(emb):
+        """micro-F1 at the protocol's split (seed 0), and at split seeds 0-4:
+        the spread the evaluation's split alone gives one embedding."""
+        f1 = [evaluate.multilabel_node_classification(
+            emb, labels, train_fraction=0.5, seed=s, device="cuda") for s in range(5)]
+        return f1[0], f1
+
+    t0 = time.perf_counter()
+    emb, text = run_captured(g.embed, dim=DIM, num_walks=10, walk_length=WALK_LENGTH,
+                             window_size=WINDOW, epochs=2, verbose=True)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    f1, by_split = score(emb)
+    record["batched_epochs2"] = {
+        "micro_f1": f1, "micro_f1_split_seeds_0_4": by_split, "embed_s": embed_s,
+        "walk_s": timer_seconds(text, "generate walks"),
+        "train_s": timer_seconds(text, "train embeddings")}
+    log(f"[quality] batched, epochs=2: {record['batched_epochs2']}")
+
+    t0 = time.perf_counter()
+    emb, text = run_captured(g.embed, dim=DIM, num_walks=10, walk_length=WALK_LENGTH,
+                             window_size=WINDOW, epochs=1, trainer="sequential",
+                             verbose=True)
+    embed_s = time.perf_counter() - t0
+    pairs = sequential_pairs(text)[0]
+    train_s = timer_seconds(text, "train embeddings (sequential)")
+    f1, by_split = score(emb)
+    record["sequential_1_thread"] = {
+        "micro_f1": f1, "micro_f1_split_seeds_0_4": by_split, "embed_s": embed_s,
+        "train_s": train_s, "pairs": pairs, "pairs_per_s": pairs / train_s}
+    log(f"[quality] sequential, 1 thread: {record['sequential_1_thread']}")
+
+    walks, eff = g.simulate_walks_device(10, WALK_LENGTH)
+    profile_sgns(walks, eff, "quality sgns", out, num_nodes=g.num_nodes)
+    log(json.dumps({"quality_profile": record}))
 
 
 if __name__ == "__main__":

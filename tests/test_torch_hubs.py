@@ -6,11 +6,12 @@ sampler function, fed the JAX key tree's own draws on integer-weight
 graphs (exact prefix sums). node2vec+ biases hold at rtol 1e-6, because
 ``row_thresholds`` reduces in another order.
 
-The JAX package builds its hub tables natively when it can; the native
-alias construction breaks ties differently from the Python builder
-(``pecanpy_tpu/ops/hubs.py:176-179``), so the port's ``edge_pack`` is held
-against the JAX Python builder, and the samplers run on the JAX layout
-carried across with ``from_numpy``.
+Both packages build their hub tables with the same native builder
+(``native/hubtables.cpp``), so the port builds its own layout and it
+equals the JAX layout bit for bit, alias rows included. The Python
+builders stay as the fallback without a toolchain; their alias rows break
+ties near q == 1 differently (``pecanpy_tpu/ops/hubs.py:176-179``), and
+the port's fallback is held against the JAX Python builder.
 """
 from typing import List
 
@@ -65,11 +66,12 @@ def with_float_weights(rng, adj, directed=False):
 
 
 def pair(adj, **kw):
-    """(port DeviceCSR on the CPU, JAX DeviceCSR) sharing the JAX tables,
-    with about half of the nodes hubs."""
+    """(port DeviceCSR on the CPU, JAX DeviceCSR), each built by its own
+    package, with about half of the nodes hubs."""
     ref = jlayout.device_csr_from_dense(adj, degree_cap=hub_cap(adj), **kw)
     assert ref.has_hubs
-    return layout.from_numpy(jax.tree.map(np.asarray, ref)), ref
+    port = layout.device_csr_from_dense(adj, degree_cap=hub_cap(adj), device="cpu", **kw)
+    return port, ref
 
 
 def edge_lanes(rng, adj, b):
@@ -154,7 +156,27 @@ def test_hub_layout_bitwise(rng, directed, with_thr, with_cdf):
     assert port.symmetric == (not directed)
 
 
-def test_edge_pack_equals_python_builder(rng):
+@pytest.mark.parametrize("directed", [False, True])
+@pytest.mark.parametrize("with_cdf", [False, True])
+def test_hub_layout_equals_jax_native_build(rng, directed, with_cdf):
+    """The port's own layout, through its native hub builder, equals the
+    JAX layout (built by the JAX package's native builder) bit for bit,
+    alias rows included."""
+    adj = with_float_weights(rng, int_hub_graph(rng, directed=directed), directed)
+    port, ref = pair(adj, with_cdf=with_cdf)
+    ref = jax.tree.map(np.asarray, ref)
+    for name in ("fused", "edge_pack", "hbuckets"):
+        np.testing.assert_array_equal(
+            _bits(getattr(port, name).numpy()), _bits(getattr(ref, name)), err_msg=name
+        )
+
+
+def test_edge_pack_equals_python_builder(rng, monkeypatch):
+    """Without the native library the port falls back to its Python
+    builders, which equal the JAX Python builder."""
+    from pecanpy_tpu_torch.native import loader
+
+    monkeypatch.setattr(loader, "native_available", lambda: False)
     adj = with_float_weights(rng, int_hub_graph(rng))
     port = layout.device_csr_from_dense(adj, degree_cap=hub_cap(adj), device="cpu")
     rows, cols = np.nonzero(adj)
@@ -169,8 +191,8 @@ def test_edge_pack_equals_python_builder(rng):
 
 def test_from_numpy_carries_hub_layout(rng):
     adj = int_hub_graph(rng)
-    port, ref = pair(adj, with_cdf=True)
-    ref = jax.tree.map(np.asarray, ref)
+    ref = jax.tree.map(np.asarray, pair(adj, with_cdf=True)[1])
+    port = layout.from_numpy(ref)
     for name in ("fused", "edge_pack", "hbuckets", "threshold"):
         np.testing.assert_array_equal(_bits(getattr(port, name).numpy()), _bits(getattr(ref, name)))
     assert port.has_hubs and port.hub_frac == ref.hub_frac

@@ -37,7 +37,8 @@ def test_port_never_imports_jax():
         "pecanpy_tpu_torch.cli, pecanpy_tpu_torch.models.sgns, "
         "pecanpy_tpu_torch.models.engine, pecanpy_tpu_torch.ops.hubs, "
         "pecanpy_tpu_torch.ops.rejection, pecanpy_tpu_torch.ops.trialkernel, "
-        "pecanpy_tpu_torch.experimental; "
+        "pecanpy_tpu_torch.experimental, pecanpy_tpu_torch.native, "
+        "pecanpy_tpu_torch.native.loader, pecanpy_tpu_torch.utils.evaluate; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert not any(m == 'pecanpy_tpu' or m.startswith('pecanpy_tpu.') "
         "for m in sys.modules), 'pecanpy_tpu imported'"
@@ -87,7 +88,6 @@ def test_cli_karate_reproducible(tmp_path, karate_edg):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--trainer", "sequential"],
     ["--checkpoint-dir", "ck"],
     ["--devices", "2"],
     ["--profile", "prof"],
@@ -139,14 +139,6 @@ def test_cli_walks_and_todense(karate_edg, tmp_path):
     out = tmp_path / "pp.emb"
     _cli(str(dense), out, "--mode", "Node2vecPlusPlus")
     assert out.read_text().splitlines()[0] == "34 4"
-
-
-def test_native_parser_not_ported(karate_edg):
-    g = pecanpy.SparseOTF(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        g.read_edg(karate_edg, weighted=False, directed=False, engine="native")
-    g.read_edg(karate_edg, weighted=False, directed=False)
-    assert g.num_nodes == 34 and g.num_edges == 154  # 77 undirected edges
 
 
 def test_small_corpus_epochs_advisory(rng):
