@@ -87,7 +87,31 @@ Phases (any failure raises, and the script exits non-zero):
       builder, timed once each: hash tables byte-equal, each hub's alias
       rows imply the same neighbour law within ``ALIAS_LAW_TOL``;
    and prints one ``{"quality": {...}}`` JSON line;
-9. prints the kernels JSON line, the ``nvidia-smi`` line, and last
+9. the per-step hub sampler (``PECANPY_TPU_AMORTIZED=0``), checkpoint
+   resume and ``--profile``:
+   a. ``SparseOTF(p=0.5, q=2)`` on phase 6's graph without the cdf
+      channel: one chunk of 32,768 walks of 80 steps through the scan
+      engine and ``rejection.second_order_sample``, its trial blocks on
+      the trial kernels (launches counted), every sampled step an edge,
+      sweeps per step (mean, max; never ``SWEEP_CAP``), walk steps/s
+      beside 6c's, and one step's host time, device time and idle share;
+   b. that step's compacted blocks through the kernels and the plain
+      block on the same draws: each group's first block
+      (``FIRST_ROUND_TRIALS``), then, with the lanes it accepted cleared,
+      each group's first sweep block (``SWEEP_TRIALS``); at most
+      ``NO_CDF_MISMATCH_SHARE`` of the valid lanes differ in each;
+   c. the second-order law of the per-step sampler on a small hub graph;
+   d. ``embed(dim=128, num_walks=1, walk_length=80, bf16,
+      max_steps=50)`` on a's graph and mode, then the same split by a
+      checkpoint at step 25 and resumed: byte-equal; the same with
+      ``streaming=True`` on phase 4's graph; snapshot bytes, save and
+      restore seconds;
+   e. the CLI with ``--profile DIR`` on a 4,000-node power-law graph
+      under ``AMORTIZED=0``: the Chrome trace parses and names kernel
+      2.1 and both trial kernels;
+   and prints the ``{"step_sampler": ..., "resume": ...}`` line and the
+   trial kernels' launches by path;
+10. prints the kernels JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -824,9 +848,12 @@ def phase_hub_path(tmp):
     finally:
         engine.generate_walks_queued = queued
     launches = trialkernel.trial_propose.launches + trialkernel.trial_accept.launches
+    results["queued_launches"] = dict(trial_propose=trialkernel.trial_propose.launches,
+                                      trial_accept=trialkernel.trial_accept.launches)
     walks_np, eff_np = walks.cpu().numpy(), eff.cpu().numpy()
     steps = int((eff_np - 1).sum())
     per = g._resolved_walker_batch() * g._walk_queue_factor()
+    results["queued_steps_s"] = steps / dt
     log(f"[6c queued] walks {tuple(walks.shape)} in {dt:.3f} s: {steps / dt:.4e} "
         f"effective walk steps/s; {len(rounds)} dispatches of {per} walks on "
         f"{g._resolved_walker_batch()} lanes, rounds {rounds} ({sum(rounds)} in all); "
@@ -1591,6 +1618,359 @@ def phase_quality(tmp):
     return record
 
 
+@contextlib.contextmanager
+def env_set(**values):
+    """Set environment variables for the enclosed work, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def trial_counts():
+    from pecanpy_tpu_torch.ops import trialkernel
+
+    return trialkernel.trial_propose.launches, trialkernel.trial_accept.launches
+
+
+def reset_counts():
+    from pecanpy_tpu_torch.ops import apply as apply_lib
+    from pecanpy_tpu_torch.ops import trialkernel
+
+    apply_lib.apply_sorted_stream.launches = 0
+    apply_lib.apply_sorted_stream_windowed.launches = 0
+    trialkernel.trial_propose.launches = trialkernel.trial_accept.launches = 0
+
+
+def phase_step_sampler(tmp, queued_steps_s):
+    """9a-c: the per-step hub sampler (``PECANPY_TPU_AMORTIZED=0``) on phase
+    6's graph, its trial blocks against plain, and its law. Returns the
+    launch counts of 9a's walk and the step's stats."""
+    import torch
+
+    from pecanpy_tpu_torch import pecanpy
+    from pecanpy_tpu_torch.models import engine
+    from pecanpy_tpu_torch.ops import rejection, trialkernel
+
+    path = os.path.join(tmp, "powerlaw_graph.csr.npz")
+    raw = np.load(path)
+    indptr, indices = raw["indptr"], raw["indices"]
+    p, q = 0.5, 2.0
+    alpha_np = max(1.0, 1.0 / q)
+    with env_set(PECANPY_TPU_AMORTIZED="0"):
+        # -- a. one chunk of walks at full width --------------------------
+        g = pecanpy.SparseOTF(p=p, q=q, random_state=0, walker_batch=HUB_LANES,
+                              device="cuda")
+        g.read_npz(path, weighted=True, implicit_ids=True)
+        t0 = time.perf_counter()
+        g.preprocess_transition_probs()
+        torch.cuda.synchronize()
+        dg = g.get_device_graph()
+        if not dg.has_hubs or "cdf" in dg.channels:
+            raise AssertionError(f"per-step sampler layout: has_hubs {dg.has_hubs}, "
+                                 f"channels {dg.channels}")
+        lanes = g._resolved_walker_batch() * g._walk_queue_factor()
+        if lanes != HUB_LANES:
+            raise AssertionError(f"{lanes} walks a chunk, expected {HUB_LANES}")
+        log(f"[9a step sampler] layout in {time.perf_counter() - t0:.2f} s: channels "
+            f"{dg.channels} (no cdf channel), {lanes} walks a chunk")
+        next(iter(g._walk_chunks(1, 8)))  # warm-up at a short length
+        torch.cuda.synchronize()
+        sweeps, calls = [], []
+        sample = rejection.second_order_sample
+
+        def counted(*args, **kwargs):
+            """The sampler, recording its sweeps and one mid-walk step's inputs."""
+            nxt = sample(*args, **kwargs)
+            sweeps.append(rejection.last_sweeps)
+            if len(sweeps) == WALK_LENGTH // 2:
+                calls.append(args)
+            return nxt
+
+        rejection.second_order_sample = counted
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            walks, eff = next(iter(g._walk_chunks(1, WALK_LENGTH)))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = dict(zip(("trial_propose", "trial_accept"), trial_counts()))
+        finally:
+            rejection.second_order_sample = sample
+        walks_np, eff_np = walks.cpu().numpy(), eff.cpu().numpy()
+        steps = int((eff_np - 1).sum())
+        log(f"[9a step sampler] launches {launches} in one chunk")
+        if not launches["trial_propose"] or launches["trial_propose"] != launches["trial_accept"]:
+            raise AssertionError(f"trial-kernel launches {launches}")
+        if walks.shape != (HUB_LANES, WALK_LENGTH + 1):
+            raise AssertionError(f"walks {tuple(walks.shape)}")
+        n_checked = check_walks_follow_edges(walks_np, eff_np, indptr, indices, NODES,
+                                             min(10_000, HUB_LANES))
+        sw = np.array(sweeps)
+        if len(sw) != WALK_LENGTH - 1 or not 0 < sw.max() < rejection.SWEEP_CAP:
+            raise AssertionError(f"{len(sw)} sampler calls, sweeps max {sw.max()} "
+                                 f"(cap {rejection.SWEEP_CAP})")
+        rate = steps / dt
+        log(f"[9a step sampler] walks {tuple(walks.shape)} in {dt:.3f} s: {rate:.4e} "
+            f"effective walk steps/s ({1e3 * dt / (WALK_LENGTH - 1):.3f} ms a step; phase "
+            f"6c's queued engine {queued_steps_s:.4e} in this run); sweeps a step mean "
+            f"{sw.mean():.2f}, max {int(sw.max())} (cap {rejection.SWEEP_CAP}); all "
+            f"{n_checked} sampled steps are edges")
+
+        # the device idle share of one step: step 40's inputs, its sampler
+        # draws from one stream each call
+        cur, prev, cur_rows, prev_rows = calls[0][2:6]
+        first_fn, step_fn = g.make_step_fns()
+        u = torch.rand((HUB_LANES, 1), device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(9))
+
+        alive = dg.rows_nbr(cur_rows)[:, 0] != dg.num_nodes
+
+        def one_step():
+            """The engine's step: the step function, then the one row gather."""
+            draws = engine.SamplerDrawStream(0, 9, "cuda")
+            nxt = step_fn(dg, u, cur, prev, cur_rows, prev_rows, draws)
+            return dg.gather_rows(torch.where(alive, nxt, cur))
+
+        one_step()
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one_step()
+            torch.cuda.synchronize()
+            host.append(time.perf_counter() - t0)
+        host_ms = 1e3 * float(np.median(host))
+        busy_ms = device_ms(one_step, reps=5)
+        idle = 1.0 - busy_ms / host_ms
+        log(f"[9a step sampler] one step (step {WALK_LENGTH // 2}'s inputs): host clock "
+            f"{host_ms:.4f} ms (median of 5), device busy {busy_ms:.4f} ms under the "
+            f"profiler: idle share {idle:.4f}")
+
+        # -- b. the step's compacted blocks: kernels against plain ---------
+        # each group's first block (FIRST_ROUND_TRIALS), then, with the
+        # lanes that block accepted cleared, each group's first sweep block
+        # (SWEEP_TRIALS): the two template builds of both kernels
+        active = dg.rows_is_hub(cur_rows) | dg.rows_is_hub(prev_rows)
+        prev_hub = dg.rows_is_hub(prev_rows)
+        _, wp = rejection.membership(dg, prev, cur_rows)
+        theta = rejection._theta_from(dg, wp, cur_rows, 1.0 / p - alpha_np, alpha_np)
+        s1 = min(max(-(-HUB_LANES // rejection.FIRST_FRACTION), 8), HUB_LANES)
+        s2 = min(max(-(-HUB_LANES // rejection.COMPACT_FRACTION), 8), HUB_LANES)
+        stream = engine.SamplerDrawStream(0, 10, "cuda")
+        groups = [(active & prev_hub, "hub"), (active & ~prev_hub, "row")]
+
+        def block_vs_plain(pending, phase, s, trials, mode, kind):
+            """One compacted block through the kernels and the plain block on
+            the same draws; returns the lanes the plain block accepted."""
+            idx, valid = rejection._compact_indices(pending, s)
+            il = idx.long()
+            draws = stream(phase, dg.deg[cur[il].long()], trials)
+            args = (prev[il], cur[il], theta[il], wp[il])
+            got = trialkernel.trial_block_fused(dg, draws, args[0], args[1], p, q,
+                                                alpha_np, args[2], args[3])
+            want = rejection._trial_block(
+                dg, draws.trials(), args[0], cur_rows[il], prev_rows[il], p, q, False,
+                alpha_np, args[2], args[3], mode=mode)
+            n_valid = int(valid.sum())
+            lanes_differ = torch.stack([a != b for a, b in zip(got, want)]).any(0) & valid
+            differ = int(lanes_differ.sum())
+            for j in torch.nonzero(lanes_differ)[:5, 0].tolist():
+                log(f"[9b blocks] phase {phase} T={trials} lane {int(idx[j])}: prev "
+                    f"{int(args[0][j])} cur {int(args[1][j])}: kernel (x, ok) "
+                    f"({int(got[0][j])}, {bool(got[1][j])}), plain ({int(want[0][j])}, "
+                    f"{bool(want[1][j])})")
+            if differ > NO_CDF_MISMATCH_SHARE * n_valid:
+                raise AssertionError(f"9b phase {phase} ({mode}, {kind}, T={trials}): "
+                                     f"{differ} of {n_valid} lanes differ from plain")
+            block_stats.append((phase, mode, trials, n_valid, differ))
+            log(f"[9b blocks] phase {phase} ({mode} group, {kind}, T={trials}): {differ} "
+                f"of {n_valid} valid lanes differ from plain (allowed "
+                f"{NO_CDF_MISMATCH_SHARE:g} of them: prefix-sum order, no cdf channel); "
+                f"accepted {int((got[1] & valid).sum())}")
+            return idx[valid & want[1]].long()
+
+        block_stats = []
+        pendings = []
+        for phase, (group, mode) in enumerate(groups):
+            accepted = block_vs_plain(group, phase, s1, rejection.FIRST_ROUND_TRIALS,
+                                      mode, "first block")
+            pending = group.clone()
+            pending[accepted] = False
+            pendings.append(pending)
+        for g_idx, (pending, (_, mode)) in enumerate(zip(pendings, groups)):
+            if not bool(pending.any()):  # the sampler skips such a group
+                log(f"[9b blocks] {mode} group: no lane pending after its first block")
+                continue
+            block_vs_plain(pending, len(groups) + g_idx, s2, rejection.SWEEP_TRIALS, mode,
+                           "first sweep")
+        first = [n for _, _, t, n, _ in block_stats if t == rejection.FIRST_ROUND_TRIALS]
+        sweep = [n for _, _, t, n, _ in block_stats if t == rejection.SWEEP_TRIALS]
+        if not all(first) or not any(sweep):
+            raise AssertionError(f"9b: a first block, or every sweep block, had no valid "
+                                 f"lane: {block_stats}")
+        del g, dg, walks, eff, calls
+        torch.cuda.empty_cache()
+
+        # -- c. the second-order law with the per-step sampler ------------
+        adj = small_hub_graph(np.random.default_rng(6))
+        gl = pecanpy.SparseOTF.from_mat(adj, [str(i) for i in range(adj.shape[0])], p=p,
+                                        q=q, degree_cap=6, random_state=4, device="cuda")
+        dgl = gl.get_device_graph()
+        if not dgl.has_hubs or "cdf" in dgl.channels:
+            raise AssertionError("law graph: hubs and no cdf channel expected")
+        before = trial_counts()[0]
+        w_l, e_l = gl.simulate_walks_device(2000, 6)
+        law_launches = trial_counts()[0] - before
+        w_l, e_l = w_l.cpu().numpy(), e_l.cpu().numpy()
+        if (e_l != 7).any() or not law_launches:
+            raise AssertionError(f"law walks: every node has edges; launches {law_launches}")
+        checked, worst = second_order_worst(w_l, adj, p, q)
+        if checked < 50 or worst > LAW_SIGMAS:
+            raise AssertionError(f"9c law: {checked} (prev, cur) pairs, worst {worst:.2f}")
+        log(f"[9c law] per-step sampler, small hub graph (degree_cap 6): {checked} "
+            f"(prev, cur) pairs, worst frequency {worst:.2f} binomial sigma (limit "
+            f"{LAW_SIGMAS})")
+    return launches, dict(steps_s=rate, sweeps_mean=float(sw.mean()),
+                          sweeps_max=int(sw.max()), step_host_ms=host_ms,
+                          step_busy_ms=busy_ms, idle_share=idle)
+
+
+def phase_resume(tmp):
+    """9d: ``embed`` split by a checkpoint and resumed, byte-equal to an
+    uninterrupted run: on phase 6's graph with the per-step sampler (stored
+    walks), and streaming on phase 4's graph. Returns the launch counts of
+    the uninterrupted per-step run and the snapshot stats."""
+    import torch
+
+    from pecanpy_tpu_torch import pecanpy
+    from pecanpy_tpu_torch.models import sgns
+    from pecanpy_tpu_torch.ops import apply as apply_lib
+    from pecanpy_tpu_torch.utils import checkpoint
+
+    # host seconds of a snapshot (device -> host -> file) and of a restore
+    # (file -> host -> the tables on the card)
+    timings = {"save": [], "restore": []}
+    targets = {"save": checkpoint.SGNSCheckpointer, "restore": sgns._Checkpoints}
+
+    def timed(name):
+        fn = getattr(targets[name], name)
+
+        def run(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            if out != 0:  # a restore from an empty directory returns 0
+                timings[name].append(time.perf_counter() - t0)
+            return out
+        return fn, run
+
+    originals = {}
+    for name in timings:
+        originals[name], wrapped = timed(name)
+        setattr(targets[name], name, wrapped)
+    kw = dict(dim=DIM, num_walks=1, walk_length=WALK_LENGTH, window_size=WINDOW,
+              table_dtype="bfloat16")
+    stats = {}
+    try:
+        for label, graph, env, streaming in (
+            ("per-step sampler", "powerlaw_graph.csr.npz", "0", False),
+            ("streaming", "bench_graph.csr.npz", "1", True),
+        ):
+            with env_set(PECANPY_TPU_AMORTIZED=env):
+                g = pecanpy.SparseOTF(p=0.5, q=2.0, random_state=0, device="cuda")
+                g.read_npz(os.path.join(tmp, graph), weighted=True, implicit_ids=True)
+                if g.get_device_graph().has_hubs != (not streaming):
+                    raise AssertionError(f"{label}: unexpected hub layout")
+                reset_counts()
+                t0 = time.perf_counter()
+                full = g.embed(**kw, streaming=streaming, max_steps=MAX_STEPS)
+                torch.cuda.synchronize()
+                dt_full = time.perf_counter() - t0
+                launches = dict(zip(("trial_propose", "trial_accept"), trial_counts()),
+                                apply_sorted_stream=apply_lib.apply_sorted_stream.launches)
+                log(f"[9d resume] {label}: uninterrupted embed(max_steps={MAX_STEPS}) in "
+                    f"{dt_full:.2f} s; launches {launches}")
+                if launches["apply_sorted_stream"] != 2 * MAX_STEPS:
+                    raise AssertionError(f"{label}: launches {launches}")
+                if not streaming and not launches["trial_propose"]:
+                    raise AssertionError(f"{label}: the trial kernels never launched")
+                if not streaming:
+                    stats["launches"] = launches
+                ckdir = os.path.join(tmp, f"ck_{int(streaming)}")
+                half = MAX_STEPS // 2
+                partial = g.embed(**kw, streaming=streaming, max_steps=half,
+                                  checkpoint_dir=ckdir, checkpoint_every=half)
+                snap = os.path.join(ckdir, f"step_{half}.pt")
+                size = os.path.getsize(snap)
+                t0 = time.perf_counter()
+                resumed = g.embed(**kw, streaming=streaming, max_steps=MAX_STEPS,
+                                  checkpoint_dir=ckdir, checkpoint_every=half)
+                torch.cuda.synchronize()
+                dt_resumed = time.perf_counter() - t0
+                if partial.tobytes() == full.tobytes():
+                    raise AssertionError(f"{label}: the partial run already ends equal")
+                if resumed.tobytes() != full.tobytes():
+                    n_diff = int((resumed != full).any(axis=1).sum())
+                    raise AssertionError(f"{label}: resumed embedding differs from the "
+                                         f"uninterrupted one in {n_diff} rows")
+                snaps = sorted(os.listdir(ckdir))
+                if len(snaps) > 2:
+                    raise AssertionError(f"{label}: {snaps} kept")
+                save_s, restore_s = timings["save"][-2:], timings["restore"][-1]
+                log(f"[9d resume] {label}: resumed run in {dt_resumed:.2f} s, byte-equal "
+                    f"to the uninterrupted run ({full.shape}, bf16 tables); snapshots "
+                    f"{snaps}, {size} bytes each; save {save_s[0]:.3f} s and "
+                    f"{save_s[1]:.3f} s, restore {restore_s:.3f} s")
+                stats[label] = dict(snapshot_bytes=size, save_s=save_s,
+                                    restore_s=restore_s)
+                for f in snaps:
+                    os.remove(os.path.join(ckdir, f))
+                del g, full, partial, resumed
+                torch.cuda.empty_cache()
+    finally:
+        for name, fn in originals.items():
+            setattr(targets[name], name, fn)
+    return stats
+
+
+def phase_profile_cli(tmp):
+    """9e: the CLI with ``--profile`` on a small hub graph under
+    ``PECANPY_TPU_AMORTIZED=0``: the trace must parse and name the
+    kernels the run launched."""
+    n = 4000
+    indptr, indices, _ = build_powerlaw_graph(n, seed=3)
+    edg = os.path.join(tmp, "small_powerlaw.edg")
+    write_edg(edg, indptr, indices)
+    prof = os.path.join(tmp, "profile")
+    run_cli("--input", edg, "--output", os.path.join(tmp, "p.emb"), "--weighted",
+            "--p", "0.5", "--q", "2", "--degree-cap", "16", "--dimensions", "16",
+            "--walk-length", "10", "--num-walks", "2", "--window-size", "4",
+            "--random_state", "0", "--profile", prof,
+            env=dict(os.environ, PECANPY_TPU_AMORTIZED="0"))
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"profile directory holds {traces}")
+    with open(os.path.join(prof, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = {}
+    for tag in ("apply_sorted_kernel", "trial_propose_kernel", "trial_accept_kernel"):
+        found[tag] = sum(tag in e.get("name", "") for e in kernels)
+        if not found[tag]:
+            raise AssertionError(f"the trace names no {tag} ({len(kernels)} kernel events)")
+    log(f"[9e profile] CLI --profile on a {n}-node power-law graph (degree_cap 16, "
+        f"AMORTIZED=0): {traces[0]}, {len(events)} events, {len(kernels)} kernel "
+        f"events; by kernel {found}")
+
+
 def main():
     import torch
 
@@ -1620,6 +2000,11 @@ def main():
         quality = phase_quality(tmp)
         quality["phase_s"] = time.perf_counter() - t8
         log(f"[8] phase 8 took {quality['phase_s']:.1f} s")
+        t9 = time.perf_counter()
+        step_launches, step_stats = phase_step_sampler(tmp, hub_results["queued_steps_s"])
+        resume = phase_resume(tmp)
+        phase_profile_cli(tmp)
+        log(f"[9] phase 9 took {time.perf_counter() - t9:.1f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     r_out = 1235 * (WALK_LENGTH + 1) + NEG_POOL
@@ -1648,6 +2033,15 @@ def main():
     } for name, src, tpu, n, r in rows]}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"quality": quality}), flush=True)
+    print(json.dumps({"step_sampler": step_stats, "resume": {
+        k: v for k, v in resume.items() if k != "launches"}}), flush=True)
+    print(json.dumps({"trial_launches_by_path": {
+        "6c_queued_walks": hub_results["queued_launches"],
+        "6f_embed": {k: hub_launches[k] for k in ("trial_propose", "trial_accept")},
+        "9a_step_sampler_walks": step_launches,
+        "9d_step_sampler_embed": {k: resume["launches"][k]
+                                  for k in ("trial_propose", "trial_accept")},
+    }}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,10 @@ conversions ``tocsr`` / ``todense``, and ``walks`` (the raw walks, one
 per line). Every walk mode runs, and the experimental
 ``Node2vecPlusPlus`` too. ``--trainer sequential`` walks on ``--device``
 and trains on the host over ``--workers`` threads (the native gensim
-loop). ``--profile``, ``--checkpoint-dir`` and ``--devices`` above 1
-raise ``NotImplementedError`` naming ROADMAP.md.
+loop). ``--checkpoint-dir`` snapshots training and resumes from the latest
+snapshot; ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of
+the pipeline into DIR. ``--devices`` above 1 raises
+``NotImplementedError`` naming ROADMAP.md.
 
 Example::
 
@@ -16,14 +18,15 @@ Example::
         --output karate.emb --mode SparseOTF --device cuda
 """
 import argparse
+import contextlib
+import os
+import time
 import warnings
 
 import numpy as np
 
 from pecanpy_tpu_torch import experimental, graph, pecanpy
 from pecanpy_tpu_torch.wrappers import Timer
-
-ROADMAP = "see ROADMAP.md, 'Modules to port'"
 
 
 def parse_args(argv=None):
@@ -145,7 +148,14 @@ def parse_args(argv=None):
         default="auto",
         help="Stream walks into training. auto: on above ~1e8 tokens.",
     )
-    parser.add_argument("--profile", metavar="DIR", default=None, help="Not ported yet.")
+    parser.add_argument(
+        "--profile",
+        metavar="DIR",
+        default=None,
+        help="Capture a torch.profiler trace of the pipeline (host "
+        "activity, and the CUDA kernels on a GPU) into DIR as a Chrome "
+        "trace JSON (view in chrome://tracing or Perfetto).",
+    )
     parser.add_argument(
         "--trainer",
         choices=["tpu", "sequential"],
@@ -156,16 +166,27 @@ def parse_args(argv=None):
         "with gensim's exact sequential loop: the quality reference, "
         "at host CPU speed, for small graphs.",
     )
-    parser.add_argument("--checkpoint-dir", default=None, help="Not ported yet.")
     parser.add_argument(
-        "--checkpoint-every", type=int, default=100, help="Not ported yet."
+        "--checkpoint-dir",
+        default=None,
+        help="Snapshot the SGNS training state into this directory "
+        "every --checkpoint-every chunk-steps, and resume from the "
+        "latest snapshot when one exists (bit-identical to an "
+        "uninterrupted run).",
+    )
+    parser.add_argument(
+        "--checkpoint-every",
+        type=int,
+        default=100,
+        help="Checkpoint period in training chunk-steps.",
     )
     parser.add_argument(
         "--max-steps",
         type=int,
         default=None,
-        help="Stop training after this many chunk-steps (the lr schedule "
-        "stays pinned to the full plan).",
+        help="Stop training after this many chunk-steps (combine with "
+        "--checkpoint-dir to split a long run across invocations; the "
+        "lr schedule stays pinned to the full plan).",
     )
     parser.add_argument(
         "--devices", type=int, default=None, help="Only 1 is ported."
@@ -186,11 +207,6 @@ def parse_args(argv=None):
         help="Torch device to run on: 'cuda' (default) or 'cpu'.",
     )
     return parser.parse_args(argv)
-
-
-def _reject_unported(args):
-    if args.profile:
-        raise NotImplementedError(f"--profile is not ported yet ({ROADMAP})")
 
 
 def check_mode(g, args):
@@ -332,11 +348,36 @@ def export_walks(args, g):
                 f.write("\n")
 
 
+@contextlib.contextmanager
+def profiled(directory: str, device: str):
+    """Trace the enclosed work with ``torch.profiler`` (host activity,
+    plus the CUDA activity on a GPU) and write it into ``directory`` as a
+    Chrome trace JSON."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if str(device).startswith("cuda"):
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(
+        os.path.join(directory, f"pecanpy_{os.getpid()}.{time.time_ns()}.pt.trace.json")
+    )
+
+
 def main(argv=None):
     """End-to-end pipeline: read -> preprocess -> walk + embed -> save
-    (or convert, or export the walks)."""
+    (or convert, or export the walks), under the profiler with
+    ``--profile``."""
     args = parse_args(argv)
-    _reject_unported(args)
+    if args.profile:
+        with profiled(args.profile, args.device):
+            return _run(args)
+    return _run(args)
+
+
+def _run(args):
     g = read_graph(args)
     if g is None:  # conversion task
         return

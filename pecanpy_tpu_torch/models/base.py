@@ -143,12 +143,19 @@ class Base(BaseGraph):
         override it: their queued engine amortizes stragglers per chunk)."""
         return 1
 
+    def _sampler_draws(self, chunk_idx: int) -> Optional[engine.StepDrawFn]:
+        """The per-step rejection sampler's draws of one walk chunk, or
+        None for modes and graphs that do not use it."""
+        return None
+
     def _make_walk_runner(self, walk_length: int):
         """The (dg, start, chunk index) -> (walks, eff) walk callable.
 
         Default: the scan engine over this mode's step functions, fed by
-        ``engine.walk_uniforms(seed, chunk index, width)``. The OTF modes
-        route hub graphs to the hub engines instead.
+        ``engine.walk_uniforms(seed, chunk index, width)`` and, where the
+        mode uses the per-step sampler, ``_sampler_draws``. The OTF modes
+        route hub graphs to the hub engines instead, unless
+        ``PECANPY_TPU_AMORTIZED=0``.
         """
         first_fn, step_fn = self.make_step_fns()
         width = self._draw_width()
@@ -160,11 +167,12 @@ class Base(BaseGraph):
             )
             return engine.generate_walks(
                 dg,
-                lambda uu, cur, rows: first_fn(dg, uu, cur, rows),
-                lambda uu, cur, prev, cr, pr: step_fn(dg, uu, cur, prev, cr, pr),
+                lambda uu, cur, rows, *d: first_fn(dg, uu, cur, rows, *d),
+                lambda uu, cur, prev, cr, pr, *d: step_fn(dg, uu, cur, prev, cr, pr, *d),
                 start,
                 u,
                 walk_length,
+                self._sampler_draws(chunk_idx),
             )
 
         return run
@@ -287,7 +295,10 @@ class Base(BaseGraph):
         ``streaming=None`` streams walks into training (two passes over a
         walk cache) once the corpus exceeds ~1e8 tokens. ``max_steps``
         stops after that many chunk-steps; the lr schedule stays pinned
-        to the full plan.
+        to the full plan. ``checkpoint_dir`` snapshots the training state
+        every ``checkpoint_every`` chunk-steps and resumes from the latest
+        snapshot when one exists, bit-identical to an uninterrupted run
+        (``models/sgns.py``, ``utils/checkpoint.py``).
 
         ``trainer="sequential"`` walks on this mode's device, then trains
         on the host with gensim's exact sequential loop (native C++,
@@ -297,7 +308,7 @@ class Base(BaseGraph):
         (``ValueError``).
 
         Not ported yet, and raising ``NotImplementedError``:
-        ``n_devices > 1`` and ``checkpoint_dir``.
+        ``n_devices > 1`` (slice D).
         """
         from pecanpy_tpu_torch.models import sgns
 
@@ -332,11 +343,6 @@ class Base(BaseGraph):
             raise NotImplementedError(
                 f"n_devices > 1: multi-device training is not ported yet "
                 f"({ROADMAP_SLICES}, slice D)"
-            )
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                f"checkpoint_dir: checkpoint and resume are not ported yet "
-                f"({ROADMAP_SLICES})"
             )
 
         config = sgns.SGNSConfig(
@@ -381,6 +387,7 @@ class Base(BaseGraph):
             return timed(
                 walk_chunks, self.num_nodes, config, verbose,
                 max_steps=max_steps, device=self.device,
+                checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
             )
 
         timed_walk = Timer("generate walks", verbose)(self.simulate_walks_device)
@@ -397,4 +404,5 @@ class Base(BaseGraph):
         return timed_train(
             walks, eff_len, self.num_nodes, config,
             max_steps=max_steps, verbose=verbose,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
         )

@@ -26,7 +26,11 @@ Every mode plugs in through two step callables:
     step_fn(u, cur, prev, cur_rows, prev_rows)  -> next   (2nd-order)
 
 where ``u`` is the step's [B, width] uniforms (width 1 for most
-modes). Walk semantics (reference ``pecanpy.py:180-206``):
+modes). The OTF modes on a hub graph under ``PECANPY_TPU_AMORTIZED=0``
+walk with the scan engine and the per-step rejection sampler
+(``rejection.second_order_sample``); ``generate_walks`` then also hands
+each callable the step's sampler draws, a ``PhaseDrawFn``, as a last
+argument. Walk semantics (reference ``pecanpy.py:180-206``):
 
 * column 0 holds the start node; steps fill columns 1..L;
 * a walker whose current node has no neighbors stops: ``eff_len`` is L+1
@@ -42,20 +46,30 @@ import torch
 
 from pecanpy_tpu_torch.ops import rejection, trialkernel
 from pecanpy_tpu_torch.ops.layout import DeviceCSR
-from pecanpy_tpu_torch.ops.rejection import RoundDraws
+from pecanpy_tpu_torch.ops.rejection import PhaseDrawFn, RoundDraws, _theta_from
 
-FirstFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+FirstFn = Callable[..., torch.Tensor]
 StepFn = Callable[..., torch.Tensor]
 # draws(round index, [B] int32 degree of each lane's current node) -> the
 # round's draws; the amortized engine's first-order draw asks for round
 # FIRST and reads its first trial
 DrawFn = Callable[[int, torch.Tensor], RoundDraws]
+# step index (1 for the first step, s for the step that fills column s) ->
+# that step's draws for the per-step sampler (``PhaseDrawFn``); the first
+# step asks for phase FIRST and reads the alias draw of its first trial.
+# The walkers hand every step one ``SamplerDrawStream`` of the chunk; the
+# per-step indirection is a test seam, where each step gets the JAX key
+# tree's draws of that step.
+StepDrawFn = Callable[[int], PhaseDrawFn]
 FIRST = -1
+# the per-step sampler's draws of a chunk: a stream beside walk_uniforms'
+SAMPLER_STREAM = 1
 
 
-def _chunk_generator(seed: int, chunk_idx: int, device) -> torch.Generator:
+def _chunk_generator(seed: int, chunk_idx: int, device, stream: int = 0) -> torch.Generator:
+    entropy = [seed, chunk_idx] + ([stream] if stream else [])
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(np.random.SeedSequence([seed, chunk_idx]).generate_state(1)[0]))
+    gen.manual_seed(int(np.random.SeedSequence(entropy).generate_state(1)[0]))
     return gen
 
 
@@ -73,22 +87,40 @@ def walk_uniforms(
     return torch.rand((walk_length, batch, width), generator=gen, device=device)
 
 
+def _round_draws(gen: torch.Generator, trials: int, deg: torch.Tensor) -> RoundDraws:
+    """[T, B] uniforms that ``rejection.slot_offsets`` turns into ``kk``,
+    then the [T, 4, B] block of the other uniforms."""
+    b = deg.shape[0]
+    u_kk = torch.rand((trials, b), generator=gen, device=deg.device)
+    u = torch.rand((trials, 4, b), generator=gen, device=deg.device)
+    return RoundDraws(rejection.slot_offsets(u_kk, deg), u)
+
+
 class TrialDrawStream:
     """The hub engines' draws for one walk chunk: a ``DrawFn`` backed by
     one ``torch.Generator`` seeded from (seed, chunk index), as
-    ``walk_uniforms`` is, so the chunk stream is reproducible. Each call
-    draws [T, B] uniforms that ``rejection.slot_offsets`` turns into
-    ``kk``, then the [T, 4, B] block of the other uniforms."""
+    ``walk_uniforms`` is, so the chunk stream is reproducible. Round FIRST
+    draws one trial, every other round ``trials``."""
 
     def __init__(self, seed: int, chunk_idx: int, trials: int, device):
         self.gen = _chunk_generator(seed, chunk_idx, device)
         self.trials = trials
 
     def __call__(self, round_idx: int, deg: torch.Tensor) -> RoundDraws:
-        n, b = 1 if round_idx == FIRST else self.trials, deg.shape[0]
-        u_kk = torch.rand((n, b), generator=self.gen, device=deg.device)
-        u = torch.rand((n, 4, b), generator=self.gen, device=deg.device)
-        return RoundDraws(rejection.slot_offsets(u_kk, deg), u)
+        return _round_draws(self.gen, 1 if round_idx == FIRST else self.trials, deg)
+
+
+class SamplerDrawStream:
+    """The per-step sampler's draws for one walk chunk: a ``PhaseDrawFn``
+    backed by one ``torch.Generator`` seeded from (seed, chunk index,
+    ``SAMPLER_STREAM``), a stream beside ``walk_uniforms``'. Each call
+    names its trial count."""
+
+    def __init__(self, seed: int, chunk_idx: int, device):
+        self.gen = _chunk_generator(seed, chunk_idx, device, SAMPLER_STREAM)
+
+    def __call__(self, phase: int, deg: torch.Tensor, trials: int) -> RoundDraws:
+        return _round_draws(self.gen, trials, deg)
 
 
 def generate_walks(
@@ -98,6 +130,7 @@ def generate_walks(
     start: torch.Tensor,
     u: torch.Tensor,
     walk_length: int,
+    draws: Optional[StepDrawFn] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Advance a batch of walkers ``walk_length`` steps.
 
@@ -109,6 +142,8 @@ def generate_walks(
             [0, 1); row 0 feeds the first step, row s the step that fills
             column s + 1. Each step gets its row as [B, width].
         walk_length: number of steps L.
+        draws: the per-step sampler's draws (``StepDrawFn``); when set,
+            step s calls its callable with ``draws(s)`` as a last argument.
 
     Returns:
         walks: [B, L + 1] int32 node indices, column 0 = start.
@@ -120,7 +155,8 @@ def generate_walks(
     start = start.to(torch.int32)
     start_rows = graph.gather_rows(start)
     alive = graph.rows_nbr(start_rows)[:, 0] != sentinel
-    first = first_fn(u[0], start, start_rows)
+    extra = (lambda s: ()) if draws is None else (lambda s: (draws(s),))
+    first = first_fn(u[0], start, start_rows, *extra(1))
     col1 = torch.where(alive, first, start)
     eff = torch.where(alive, walk_length + 1, 1).to(torch.int32)
     cols = [start, col1]
@@ -133,24 +169,12 @@ def generate_walks(
         has = graph.rows_nbr(cur_rows)[:, 0] != sentinel
         eff = torch.where(alive & ~has, step_idx, eff).to(torch.int32)
         alive = alive & has
-        nxt = step_fn(u[step_idx - 1], cur, prev, cur_rows, prev_rows)
+        nxt = step_fn(u[step_idx - 1], cur, prev, cur_rows, prev_rows, *extra(step_idx))
         nxt = torch.where(alive, nxt, cur)
         nxt_rows = graph.gather_rows(nxt)  # THE one gather per step
         prev, cur, prev_rows, cur_rows = cur, nxt, cur_rows, nxt_rows
         cols.append(nxt)
     return torch.stack(cols, dim=1), eff
-
-
-def _theta_from(graph: DeviceCSR, wp, cur_rows, excess, alpha_np):
-    """Return-edge atom mass from w(cur -> prev) and cur's weight sum."""
-    wsum = graph.rows_wgt(cur_rows).sum(dim=-1)
-    if graph.has_hubs:
-        wsum = torch.where(
-            graph.rows_is_hub(cur_rows), graph.rows_hub_wsum(cur_rows), wsum
-        )
-    return wp * excess / (
-        wp * excess + alpha_np * torch.clamp(wsum, min=rejection._EPS)
-    )
 
 
 def _trial_fn(graph: DeviceCSR, p, q, extend, alpha_np, use_cdf):
@@ -159,7 +183,7 @@ def _trial_fn(graph: DeviceCSR, p, q, extend, alpha_np, use_cdf):
     graph) on ``cur_rows`` and prev's row gathered here."""
 
     def run(draws, prev, cur, cur_rows, theta, wp, force_ok=None):
-        if extend or cur.device.type == "cpu":
+        if not rejection.use_trial_kernels(extend, cur.device):
             return rejection._trial_block(
                 graph, draws.trials(), prev, cur_rows, graph.gather_rows(prev), p, q,
                 extend, alpha_np, theta, wp, mode="auto", use_cdf=use_cdf,

@@ -4,8 +4,10 @@ Counterpart of ``pecanpy_tpu/models/modes.py``. ``SparseOTF`` and
 ``DenseOTF`` differ only in which host container they parse into; both
 feed the same fused row layout. Graphs without hubs walk with the scan
 engine over the step functions below; the OTF modes walk graphs with
-hubs with the hub engines (``_AmortizedOTFMixin``). ``FirstOrderUnweighted``,
-``PreCompFirstOrder`` and ``PreComp`` always take the scan engine.
+hubs with the hub engines (``_AmortizedOTFMixin``), or under
+``PECANPY_TPU_AMORTIZED=0`` with the scan engine and the per-step
+rejection sampler. ``FirstOrderUnweighted``, ``PreCompFirstOrder`` and
+``PreComp`` always take the scan engine.
 
 Step functions receive the *pre-gathered fused rows* of the current and
 previous nodes (carried by the engine) and never touch the node table;
@@ -19,7 +21,7 @@ import torch
 
 from pecanpy_tpu_torch.graph import DenseGraph, SparseGraph
 from pecanpy_tpu_torch.models import engine
-from pecanpy_tpu_torch.models.base import ROADMAP_SLICES, Base
+from pecanpy_tpu_torch.models.base import Base
 from pecanpy_tpu_torch.ops import rejection, sampling, transition
 from pecanpy_tpu_torch.ops.layout import (
     LANE,
@@ -27,6 +29,12 @@ from pecanpy_tpu_torch.ops.layout import (
     build_device_csr,
     device_csr_from_dense,
 )
+
+
+def _amortized() -> bool:
+    """The hub walkers, unless ``PECANPY_TPU_AMORTIZED=0`` asks for the
+    scan engine with the per-step rejection sampler."""
+    return os.environ.get("PECANPY_TPU_AMORTIZED", "1") not in ("0", "false")
 
 
 def _want_cdf(mode, max_degree: int) -> bool:
@@ -37,13 +45,14 @@ def _want_cdf(mode, max_degree: int) -> bool:
     every trial, so the OTF modes (``_cdf_for_hubs``) give it to hub
     graphs within a budget of N * dpad * 4 bytes (default 2 GiB,
     ``PECANPY_TPU_CDF_BUDGET_MB``; 0 disables). Graphs without hubs walk
-    the OTF modes with the scan engine, which has no use for it
-    (``pecanpy_tpu/models/modes.py:_want_cdf``).
+    the OTF modes with the scan engine, which has no use for it, and so
+    does the per-step sampler (``PECANPY_TPU_AMORTIZED=0``;
+    ``pecanpy_tpu/models/modes.py:_want_cdf``).
     """
     if mode._needs_cdf_channel:
         return True
     cap = mode.degree_cap
-    if cap is None or max_degree <= cap or not mode._cdf_for_hubs:
+    if cap is None or max_degree <= cap or not mode._cdf_for_hubs or not _amortized():
         return False
     budget = int(os.environ.get("PECANPY_TPU_CDF_BUDGET_MB", "2048")) * (1 << 20)
     dpad = -(-min(max_degree, cap) // LANE) * LANE
@@ -99,17 +108,37 @@ def _pick_kernel(extend: bool):
 
 def _otf_step_fns(p: float, q: float, extend: bool):
     """On-the-fly transition sampling: bias weights + inverse-CDF draw
-    (reference OTF move, ``pecanpy.py:543-559``, batched)."""
+    (reference OTF move, ``pecanpy.py:543-559``, batched).
+
+    On a hub graph (the scan engine under ``PECANPY_TPU_AMORTIZED=0``)
+    the step functions also take the step's sampler draws: the first step
+    draws a hub's alias slot from ``draws(FIRST, deg, 1)``, and a later
+    step sends every lane whose cur or prev is a hub through
+    ``rejection.second_order_sample``. Every lane still takes the fused
+    draw (a hub lane's, on its marker row, is discarded), as in
+    ``pecanpy_tpu/models/modes.py:_otf_step_fns``.
+    """
     kernel = _pick_kernel(extend)
 
-    def first_fn(dg, u, cur, cur_rows):
-        x, _ = rejection.propose(dg, u, cur_rows)
+    def first_fn(dg, u, cur, cur_rows, draws=None):
+        if not dg.has_hubs:
+            x, _ = rejection.propose(dg, u, cur_rows)
+            return x
+        d = draws(engine.FIRST, dg.rows_degree(cur_rows), 1).trials()[0]
+        x, _ = rejection.propose(dg, u, cur_rows, False, d.kk, d.u_self)
         return x
 
-    def step_fn(dg, u, cur, prev, cur_rows, prev_rows):
+    def step_fn(dg, u, cur, prev, cur_rows, prev_rows, draws=None):
         weights = kernel(dg, cur_rows, prev_rows, prev, p, q)
         choice = sampling.categorical_rows(u, weights)
-        return sampling.pick_int_columns(dg.rows_nbr(cur_rows), choice)
+        nxt = sampling.pick_int_columns(dg.rows_nbr(cur_rows), choice)
+        if dg.has_hubs:
+            use_rej = dg.rows_is_hub(cur_rows) | dg.rows_is_hub(prev_rows)
+            nxt_rej = rejection.second_order_sample(
+                dg, draws, cur, prev, cur_rows, prev_rows, p, q, extend, use_rej
+            )
+            nxt = torch.where(use_rej, nxt_rej, nxt)
+        return nxt
 
     return first_fn, step_fn
 
@@ -123,10 +152,12 @@ class _AmortizedOTFMixin:
     round, ``PECANPY_TPU_UNROLL`` (default 4) the rounds per host read
     of the pending count: ``UNROLL`` in the amortized engine, ``4 *
     UNROLL`` in the queued one (the JAX engine's ``unroll *
-    flush_every``). Graphs without hubs keep the scan engine. The JAX
-    package's per-step rejection sampler (``PECANPY_TPU_AMORTIZED=0``)
-    is not ported: on a hub graph that setting raises. Hub graphs get the
-    first-order CDF channel (``_cdf_for_hubs``, see ``_want_cdf``).
+    flush_every``). Graphs without hubs keep the scan engine, and so do
+    hub graphs under ``PECANPY_TPU_AMORTIZED=0``, with the per-step
+    rejection sampler (``_otf_step_fns``) fed by a draw stream per chunk
+    seeded from (seed, chunk index). Hub graphs get the first-order CDF
+    channel (``_cdf_for_hubs``, see ``_want_cdf``) unless that setting
+    is on.
     """
 
     _cdf_for_hubs = True
@@ -135,20 +166,20 @@ class _AmortizedOTFMixin:
         """Walks per chunk = queue_factor * walker lanes (hub graphs): the
         queued engine amortizes its straggler tail over the whole chunk
         (``PECANPY_TPU_QUEUE_FACTOR``, default 8; 0 takes the per-batch
-        amortized engine, one batch per chunk)."""
-        if not self.get_device_graph().has_hubs:
+        amortized engine, one batch per chunk). 1 for the scan engine."""
+        if not self.get_device_graph().has_hubs or not _amortized():
             return 1
         return max(int(os.environ.get("PECANPY_TPU_QUEUE_FACTOR", "8")), 1)
 
-    def _make_walk_runner(self, walk_length: int):
+    def _sampler_draws(self, chunk_idx: int):
         if not self.get_device_graph().has_hubs:
+            return None
+        stream = engine.SamplerDrawStream(self._seed(), chunk_idx, self.device)
+        return lambda step: stream
+
+    def _make_walk_runner(self, walk_length: int):
+        if not self.get_device_graph().has_hubs or not _amortized():
             return super()._make_walk_runner(walk_length)
-        if os.environ.get("PECANPY_TPU_AMORTIZED", "1") in ("0", "false"):
-            raise NotImplementedError(
-                "PECANPY_TPU_AMORTIZED=0 on a graph with hubs needs the "
-                "per-step rejection sampler, which is not ported yet "
-                f"({ROADMAP_SLICES}, item 19)"
-            )
         p, q, extend = self.p, self.q, self.extend
         trials = int(os.environ.get("PECANPY_TPU_AMORTIZED_TRIALS", "2"))
         unroll = int(os.environ.get("PECANPY_TPU_UNROLL", "4"))

@@ -21,8 +21,15 @@ hand-written CUDA applier on a GPU).
 
 Random draws: every step takes its draws as one ``StepDraws``, derived
 from the config seed and the global step index alone (``draw_step``), so
-any split of the run (streaming buffers, ``max_steps``) replays the same
-trajectory. Tests hand in the JAX key tree's numbers instead.
+any split of the run (streaming buffers, ``max_steps``, a resume from a
+checkpoint) replays the same trajectory. Tests hand in the JAX key tree's
+numbers instead.
+
+Checkpoints (``checkpoint_dir``): both trainers snapshot the tables every
+``checkpoint_every`` chunk-steps (``utils/checkpoint.py``) and, when the
+directory holds a snapshot, resume from the latest one: the cursor
+replays without the work, so a resumed run ends bit-identical to an
+uninterrupted one.
 """
 import dataclasses
 import time
@@ -33,6 +40,15 @@ import numpy as np
 import torch
 
 from pecanpy_tpu_torch.ops.apply import apply_mean_updates, apply_mean_updates_two
+from pecanpy_tpu_torch.utils.checkpoint import SGNSCheckpointer, verify_rng_scheme
+
+# Version tag of the port's draw derivation: walk chunks from
+# SeedSequence([seed, chunk]) (models/engine.py; the per-step hub sampler
+# from SeedSequence([seed, chunk, 1])), chunk-step draws from
+# SeedSequence([seed, 1, g]) (``draw_step``). Stamped into every
+# checkpoint; resume refuses a mismatch (``verify_rng_scheme``). The JAX
+# package's key tree is another scheme ("single-span-foldin-v1").
+RNG_SCHEME = "torch-seedsequence-v1"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -439,13 +455,54 @@ def _setup_tables(config, num_nodes, device, seed, _tables):
     return init_tables(seed, num_nodes, config.dim, table_dtype, device)
 
 
+class _Checkpoints:
+    """A trainer's checkpoint directory: the snapshot it resumes from and
+    the snapshots it writes every ``every`` chunk-steps."""
+
+    def __init__(self, directory: str, every: int):
+        if every < 1:
+            raise ValueError(f"checkpoint_every must be at least 1, got {every}")
+        self.every = every
+        self.ckpt = SGNSCheckpointer(directory)
+
+    def restore(self, w_in, w_out):
+        """Copy the latest snapshot into the tables (on their device, in
+        their dtype); returns the chunk-steps it covers (0: fresh start)."""
+        if self.ckpt.latest_step() is None:
+            return 0
+        r_in, r_out, meta = self.ckpt.restore()
+        verify_rng_scheme(meta, RNG_SCHEME)
+        for table, saved in ((w_in, r_in), (w_out, r_out)):
+            if saved.shape != table.shape:
+                raise ValueError(
+                    f"checkpoint table {tuple(saved.shape)} does not match "
+                    f"this run's {tuple(table.shape)}"
+                )
+            table.copy_(saved.to(device=table.device, dtype=table.dtype))
+        return int(meta["next_step"])
+
+    def after_step(self, step_idx, w_in, w_out):
+        """Snapshot once ``step_idx`` chunk-steps are done, at a boundary."""
+        if step_idx % self.every == 0:
+            self.ckpt.save(
+                step_idx, w_in, w_out,
+                {"next_step": step_idx, "rng_scheme": RNG_SCHEME},
+            )
+
+
 def _run_buffer(step, w_in, w_out, walks, eff_len, eff_host, chunk, keep_prob,
-                neg_table, lrs_of, g0, draw: DrawFn, budget):
-    """Train the chunks of one walk buffer; returns (chunk-steps run,
+                neg_table, lrs_of, g0, draw: DrawFn, budget, step0, resume=0,
+                ckpt: Optional[_Checkpoints] = None):
+    """Train the chunks of one walk buffer; returns (chunk-steps covered,
     tokens they covered).
 
     ``lrs_of(eff_sums)`` gives the buffer's per-chunk learning rates,
-    ``budget`` the chunk-steps still allowed (None: unlimited).
+    ``budget`` the chunk-steps still allowed (None: unlimited). ``step0``
+    is the run's chunk-step count before this buffer: chunk-steps below
+    ``resume`` are already in the restored tables, so the cursor passes
+    them without the work (their lrs, draws and tokens stay as in an
+    uninterrupted run), and ``ckpt`` snapshots after each chunk-step that
+    ends on its boundary.
     """
     n_chunks = -(-walks.shape[0] // chunk)
     pad = n_chunks * chunk - walks.shape[0]
@@ -457,10 +514,12 @@ def _run_buffer(step, w_in, w_out, walks, eff_len, eff_host, chunk, keep_prob,
     lrs = lrs_of(eff_sums)
     t = walks.shape[1]
     steps = n_chunks if budget is None else min(n_chunks, budget)
-    for i in range(steps):
+    for i in range(min(max(resume - step0, 0), steps), steps):
         sl = slice(i * chunk, (i + 1) * chunk)
         step(w_in, w_out, walks[sl], eff_len[sl], keep_prob, neg_table,
              float(lrs[i]), draw(g0 + i, chunk, t))
+        if ckpt is not None:
+            ckpt.after_step(step0 + i + 1, w_in, w_out)
     return steps, float(eff_sums[:steps].sum())
 
 
@@ -471,6 +530,8 @@ def train(
     config: SGNSConfig = SGNSConfig(),
     max_steps: Optional[int] = None,
     verbose: bool = False,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 100,
     *,
     _tables=None,
     _draws: Optional[DrawFn] = None,
@@ -485,6 +546,11 @@ def train(
         config: hyperparameters.
         max_steps: stop after this many chunk-steps (the lr schedule
             stays pinned to the full plan).
+        checkpoint_dir: if set, snapshot both tables every
+            ``checkpoint_every`` chunk-steps and resume from the latest
+            snapshot when one exists (bit-identical to an uninterrupted
+            run; combine with ``max_steps`` to split a run).
+        checkpoint_every: snapshot period in chunk-steps.
         _tables / _draws: test seams replacing the initial tables and
             the per-step draws (``_draws(g, wb, t) -> StepDraws``).
 
@@ -502,6 +568,10 @@ def train(
         build_negative_table(counts.cpu().numpy(), seed=seed)
     ).to(device)
     w_in, w_out = _setup_tables(config, num_nodes, device, seed, _tables)
+    ckpt, resume = None, 0
+    if checkpoint_dir is not None:
+        ckpt = _Checkpoints(checkpoint_dir, checkpoint_every)
+        resume = ckpt.restore(w_in, w_out)
     draw = _draws or (
         lambda g, wb, t: draw_step(
             seed, g, wb, t, config, neg_table.shape[0], device
@@ -525,7 +595,7 @@ def train(
             step, w_in, w_out, walks, eff_len, eff_host, chunk, keep_prob,
             neg_table,
             lambda s: _chunk_lrs(config, s, done_tokens, total_tokens),
-            epoch * n_chunks, draw, budget,
+            epoch * n_chunks, draw, budget, step_idx, resume, ckpt,
         )
         step_idx += steps
         done_tokens += tokens
@@ -557,6 +627,8 @@ def train_streaming(
     max_steps: Optional[int] = None,
     cache_walks_bytes: Optional[int] = None,
     device=None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 100,
     *,
     _tables=None,
     _draws: Optional[DrawFn] = None,
@@ -580,6 +652,8 @@ def train_streaming(
         config: hyperparameters (``epochs`` counts training passes).
         max_steps: stop after this many chunk-steps.
         device: where the tables live (None: the first chunk's device).
+        checkpoint_dir / checkpoint_every: as in ``train``; a resume
+            replays the (deterministic) walk-chunk stream to its cursor.
         _tables / _draws: test seams, as in ``train``.
 
     Returns:
@@ -638,6 +712,10 @@ def train_streaming(
         )
 
     w_in, w_out = _setup_tables(config, num_nodes, device, seed, _tables)
+    ckpt, resume = None, 0
+    if checkpoint_dir is not None:
+        ckpt = _Checkpoints(checkpoint_dir, checkpoint_every)
+        resume = ckpt.restore(w_in, w_out)
     draw = _draws or (
         lambda g, wb, t: draw_step(
             seed, g, wb, t, config, neg_table.shape[0], device
@@ -664,7 +742,7 @@ def train_streaming(
                 eff_len.to(torch.int32), eff_host, chunk, keep_prob,
                 neg_table,
                 lambda s: _chunk_lrs(config, s, done_tokens, total_tokens),
-                step_idx, draw, budget,
+                step_idx, draw, budget, step_idx, resume, ckpt,
             )
             step_idx += steps
             done_tokens += tokens

@@ -3,7 +3,8 @@
 Counterpart of ``pecanpy_tpu/ops/rejection.py`` (``alias_propose``,
 ``fused_propose``, ``propose``, ``uniform_propose``, ``membership``,
 ``_bias_from_membership``, ``_bias``, ``_single_trial`` and
-``_trial_block``). A second-order step
+``_trial_block``, ``_compact_indices`` and ``second_order_sample``).
+A second-order step
 where either endpoint may be a hub samples the exact node2vec law by
 rejection, with O(1) memory accesses per trial whatever the degree:
 
@@ -26,11 +27,17 @@ draws of a round's T trials as the kernels read them. The JAX package draws
 
 ``_trial_block`` is the plain version of the CUDA trial kernels
 (``ops/trialkernel.py``) and the only implementation for node2vec+.
+
+``second_order_sample`` is the per-step sampler of the scan engine on hub
+graphs (``PECANPY_TPU_AMORTIZED=0``): it draws the next node of every
+lane that needs the rejection path within one walk step, in compacted
+trial phases over the pending lanes until none is left. Its draws come
+from a provider ``draws(phase, deg, trials) -> RoundDraws`` whose phase
+index follows the JAX package's ``fold_in`` indices.
 Left out: the tiered compaction (``tier_compact`` and its helpers, a
-measured negative on the TPU) and the per-step sampler
-``second_order_sample`` (ROADMAP.md, item 19).
+measured negative on the TPU).
 """
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,6 +47,20 @@ from pecanpy_tpu_torch.ops.layout import DeviceCSR
 from pecanpy_tpu_torch.ops.transition import row_thresholds
 
 _EPS = 1e-30
+
+# The per-step sampler's phase sizes and trial counts (the JAX package's
+# values): a first block of up to B / FIRST_FRACTION lanes per group with
+# FIRST_ROUND_TRIALS trials, then sweeps of B / COMPACT_FRACTION lanes per
+# group with SWEEP_TRIALS trials until no lane is pending, at most
+# SWEEP_CAP of them.
+FIRST_ROUND_TRIALS = 2
+FIRST_FRACTION = 4
+SWEEP_TRIALS = 4
+COMPACT_FRACTION = 32
+SWEEP_CAP = 256
+# the sweeps of the last ``second_order_sample`` call (read by measurement
+# code; a module attribute, so it holds when a caller wraps the function)
+last_sweeps = 0
 
 
 class TrialDraws(NamedTuple):
@@ -324,3 +345,139 @@ def _trial_block(
     ]
     xs, oks, wxs = zip(*trials)
     return _combine(xs, oks, wxs, force_ok)
+
+
+def _theta_from(graph: DeviceCSR, wp, cur_rows, excess, alpha_np):
+    """Return-edge atom mass from w(cur -> prev) and cur's weight sum."""
+    wsum = graph.rows_wgt(cur_rows).sum(dim=-1)
+    if graph.has_hubs:
+        wsum = torch.where(
+            graph.rows_is_hub(cur_rows), graph.rows_hub_wsum(cur_rows), wsum
+        )
+    return wp * excess / (wp * excess + alpha_np * torch.clamp(wsum, min=_EPS))
+
+
+def _compact_indices(pending: torch.Tensor, s: int):
+    """Indices of the first ``s`` pending lanes, in lane order.
+
+    Slot j holds the lane where the running count of pending lanes first
+    reaches j + 1 (a ``searchsorted`` over the cumsum: no host sync).
+    Slots past the pending count are invalid and clamp to lane B - 1, as
+    in the JAX package, whose blocked search returns the same indices.
+
+    Returns (idx [s] int32 clamped in range, valid [s] bool).
+    """
+    b = pending.shape[0]
+    csum = torch.cumsum(pending.to(torch.int32), 0, dtype=torch.int32)
+    j = torch.arange(s, dtype=torch.int32, device=pending.device)
+    idx = torch.searchsorted(csum, j + 1).to(torch.int32)
+    return torch.clamp(idx, max=b - 1), j < csum[-1]
+
+
+# draws(phase, [S] int32 degree of each compacted lane's cur, trials) ->
+# the phase's draws for ``trials`` trials
+PhaseDrawFn = Callable[[int, torch.Tensor, int], RoundDraws]
+
+
+def use_trial_kernels(extend: bool, device) -> bool:
+    """The route of every hub trial block: the CUDA trial kernels (on node
+    ids) for node2vec on the card; the plain ``_trial_block`` (on gathered
+    rows) for node2vec+ and on the CPU."""
+    return not extend and torch.device(device).type != "cpu"
+
+
+def second_order_sample(
+    dg: DeviceCSR,
+    draws: PhaseDrawFn,
+    cur: torch.Tensor,
+    prev: torch.Tensor,
+    cur_rows: torch.Tensor,
+    prev_rows: torch.Tensor,
+    p: float,
+    q: float,
+    extend: bool,
+    active: torch.Tensor,
+) -> torch.Tensor:
+    """Exact second-order transition draw by rejection, O(1) per trial
+    (``pecanpy_tpu/ops/rejection.py:second_order_sample``).
+
+    The pending lanes are split by prev-hubness into a "hub" group (a
+    bucket probe decides membership) and a "row" group (a compare against
+    prev's row). Each group's first S1 = B / 4 pending lanes run a block
+    of ``FIRST_ROUND_TRIALS`` trials (phases 0 and 1); then sweep t runs
+    ``SWEEP_TRIALS`` trials over each group's first S2 = B / 32 pending
+    lanes (phases 2 + 2t and 3 + 2t) until no lane is pending. On a graph
+    without hubs there is one "row" group: phase 0, then 1 + t. Every
+    valid lane records its freshest proposal; an accepted lane leaves the
+    pending set. The return-edge atom is computed once over the full
+    batch. The pending count is read on the host once per sweep, and a
+    sweep skips a group that has no pending lane (it would write nothing).
+    Each block takes the route of ``use_trial_kernels``: the trial kernels
+    pick the membership route per lane, so the group's ``mode`` only
+    routes the plain block. The call's sweep count is kept in
+    ``last_sweeps``.
+
+    Args:
+        draws: the phases' draws (a ``SamplerDrawStream`` or injected).
+        active: [B] bool lanes that need a rejection-path sample.
+
+    Returns [B] int32 samples (valid where active).
+    """
+    global last_sweeps
+    b = cur.shape[0]
+    alpha_np = max(1.0, 1.0 / q)  # bound over non-return candidates
+    excess = 1.0 / p - alpha_np
+    use_atom = excess > 0.0
+    if use_atom:
+        _, wp_full = membership(dg, prev, cur_rows)
+        theta_full = _theta_from(dg, wp_full, cur_rows, excess, alpha_np)
+    # slot b of the two buffers takes the writes of invalid slots
+    nxt = torch.cat([cur, cur[:1]])
+    kernels = use_trial_kernels(extend, cur.device)
+    if kernels:
+        from pecanpy_tpu_torch.ops import trialkernel  # imports this module
+
+    def run_phase(pending, phase, s, trials, mode):
+        idx, valid = _compact_indices(pending[:b], s)
+        il = idx.long()
+        theta, wp = (theta_full[il], wp_full[il]) if use_atom else (None, None)
+        if kernels:
+            d = draws(phase, dg.deg[cur[il].long()], trials)
+            x_sub, ok_sub, _ = trialkernel.trial_block_fused(
+                dg, d, prev[il], cur[il], p, q, alpha_np, theta, wp
+            )
+        else:
+            rows = cur_rows[il]
+            d = draws(phase, dg.rows_degree(rows), trials)
+            x_sub, ok_sub, _ = _trial_block(
+                dg, d.trials(), prev[il], rows, prev_rows[il], p, q, extend,
+                alpha_np, theta, wp, mode=mode,
+            )
+        nxt[torch.where(valid, idx, b).long()] = x_sub
+        pending[torch.where(valid & ok_sub, idx, b).long()] = False
+
+    def with_trash(mask):
+        return torch.cat([mask, mask.new_zeros(1)])
+
+    s1 = min(max(-(-b // FIRST_FRACTION), 8), b)
+    s2 = min(max(-(-b // COMPACT_FRACTION), 8), b)
+    if dg.has_hubs:
+        prev_hub = dg.rows_is_hub(prev_rows)
+        groups = [(with_trash(active & prev_hub), "hub"), (with_trash(active & ~prev_hub), "row")]
+    else:
+        groups = [(with_trash(active), "row")]
+    n_g = len(groups)
+    for g, (pending, mode) in enumerate(groups):
+        run_phase(pending, g, s1, FIRST_ROUND_TRIALS, mode)
+
+    t = 0
+    while t < SWEEP_CAP:
+        counts = torch.stack([pnd.sum() for pnd, _ in groups]).tolist()  # host read
+        if not any(counts):
+            break
+        for g, (pending, mode) in enumerate(groups):
+            if counts[g]:
+                run_phase(pending, n_g + n_g * t + g, s2, SWEEP_TRIALS, mode)
+        t += 1
+    last_sweeps = t
+    return nxt[:b]

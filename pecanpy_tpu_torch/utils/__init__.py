@@ -1,1 +1,2 @@
-"""Utilities: the downstream evaluation protocol (``evaluate``)."""
+"""Utilities: the downstream evaluation protocol (``evaluate``) and SGNS
+training checkpoints (``checkpoint``)."""

@@ -2,7 +2,8 @@
 """Where the PyTorch port's time goes, on one NVIDIA GPU.
 
     python3 profile_port.py [--out chiprun_out/profile_port.txt]
-                            [--sections walks,sgns,hub,precomp,apply,apply-sweep,trial-sweep,quality]
+                            [--sections walks,sgns,hub,stepsampler,precomp,apply,apply-sweep,
+                                        trial-sweep,quality]
                             [--trial-baseline OLD_TRIAL_CU]
 
 Runs the configurations of ``chip_smoke.py`` (p=0.5, q=2, walks of 80
@@ -19,6 +20,10 @@ steps) and measures these steady-state windows:
   ``benchmarks/bench_powerlaw.py``), one dispatch of the queued engine:
   262,144 walks of 80 steps on 32,768 lanes, reported per round, with
   every op of the round by device time;
+- stepsampler: on the same graph under ``PECANPY_TPU_AMORTIZED=0`` (no
+  cdf channel), one chunk of 32,768 walks of 80 steps through the scan
+  engine and the per-step sampler (``rejection.second_order_sample``),
+  reported per walk step, with its sweeps per step and the top ops;
 - precomp: on the main path's graph, the PreComp edge-CDF build (host
   clock), its ``simulate_walks_device(1, 80)``, and the SGNS window on
   those walks with the windowed applier (``PECANPY_TPU_APPLY_V2``);
@@ -111,8 +116,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "profile_port.txt"))
     ap.add_argument("--sections", default="walks,sgns,hub,precomp",
-                    help="comma-separated subset of walks, sgns, hub, precomp, apply, "
-                         "apply-sweep, trial-sweep, quality")
+                    help="comma-separated subset of walks, sgns, hub, stepsampler, precomp, "
+                         "apply, apply-sweep, trial-sweep, quality")
     ap.add_argument("--apply-lib", help="with --sections apply-lib: time kernel 2.1 "
                     "from this build of the library (the sweep's own processes)")
     ap.add_argument("--trial-baseline", help="with --sections trial-sweep: an earlier "
@@ -153,6 +158,8 @@ def main():
             profile_main(tmp, out, sections)
         if "hub" in sections:
             profile_hub(tmp, out)
+        if "stepsampler" in sections:
+            profile_stepsampler(tmp, out)
         if "quality" in sections:
             profile_quality(tmp, out)
         log(f"[done] op tables in {os.path.relpath(args.out, REPO)}")
@@ -479,6 +486,56 @@ def profile_hub(tmp, out):
     if busy_s is not None:
         log(f"[hub] device busy {1e3 * busy_s / rounds:.4f} ms per round under the "
             f"profiler: idle share {1 - busy_s / host_s:.4f} of the host-clock window")
+
+
+def profile_stepsampler(tmp, out):
+    """One chunk of the scan engine with the per-step hub sampler on the
+    power-law graph, per walk step, with its top ops."""
+    import torch
+
+    from chip_smoke import HUB_LANES, WALK_LENGTH, env_set
+    from pecanpy_tpu_torch.ops import rejection
+
+    with env_set(PECANPY_TPU_AMORTIZED="0"):
+        g, dg, _, _ = hub_graph(tmp)
+        if "cdf" in dg.channels or g._walk_queue_factor() != 1:
+            raise AssertionError("the per-step sampler's layout has no cdf channel")
+        run = g._make_walk_runner(WALK_LENGTH)
+        starts = torch.from_numpy(g._start_nodes(1)[:HUB_LANES]).cuda()
+        sweeps = []
+        sample = rejection.second_order_sample
+
+        def counted(*args, **kwargs):
+            nxt = sample(*args, **kwargs)
+            sweeps.append(rejection.last_sweeps)
+            return nxt
+
+        result = {}
+
+        def chunk(chunk_idx):
+            result["out"] = run(dg, starts, chunk_idx)
+
+        rejection.second_order_sample = counted
+        try:
+            chunk(0)  # warm-up
+            sweeps.clear()
+            log(f"[stepsampler] scan engine + per-step sampler, {HUB_LANES} walks of "
+                f"{WALK_LENGTH} steps, top ops by device time:")
+            host_s, busy_s = profiled(lambda: chunk(1), "stepsampler", out, top=30)
+        finally:
+            rejection.second_order_sample = sample
+    _, eff = result["out"]
+    steps = float((eff.to(torch.int64) - 1).sum())
+    n_steps = WALK_LENGTH - 1
+    sw = np.array(sweeps[: len(sweeps) // 2])  # the host-clock run's calls
+    if not 0 < sw.max() < rejection.SWEEP_CAP:
+        raise AssertionError(f"sweeps a step max {sw.max()} (cap {rejection.SWEEP_CAP})")
+    log(f"[stepsampler] {host_s:.4f} s host clock: {1e3 * host_s / n_steps:.4f} ms per walk "
+        f"step, {steps / host_s:.4e} effective steps/s; sweeps a step mean {sw.mean():.2f}, "
+        f"max {int(sw.max())}")
+    if busy_s is not None:
+        log(f"[stepsampler] device busy {1e3 * busy_s / n_steps:.4f} ms per walk step under "
+            f"the profiler: idle share {1 - busy_s / host_s:.4f} of the host-clock window")
 
 
 # the trial kernels' constants in csrc/trial.cu, and the variants the sweep

@@ -261,14 +261,22 @@ def test_mode_node2vec_plus_law(rng, mode):
     _law_check(adj, walks, eff, p, q, extend=True)
 
 
-def test_per_step_sampler_not_ported(rng, monkeypatch):
+def test_per_step_sampler_walks_hub_graph(rng, monkeypatch):
+    """``PECANPY_TPU_AMORTIZED=0`` on a hub graph walks with the scan
+    engine and the per-step sampler (tests/test_torch_stepsampler.py holds
+    it against the JAX package), one batch per chunk and no cdf channel."""
     monkeypatch.setenv("PECANPY_TPU_AMORTIZED", "0")
     adj = oracle.random_graph(rng, 10, mean_degree=8.0, weighted=True)
     g = pecanpy.SparseOTF.from_mat(
         adj, [str(i) for i in range(10)], degree_cap=CAP, device="cpu"
     )
-    with pytest.raises(NotImplementedError, match="item 19"):
-        g.simulate_walks_device(1, 4)
+    dg = g.get_device_graph()
+    assert dg.has_hubs and "cdf" not in dg.channels
+    assert g._walk_queue_factor() == 1
+    walks, eff = g.simulate_walks_device(1, 4)
+    for row, m in zip(walks.numpy(), eff.numpy()):
+        for a, b in zip(row[: m - 1], row[1:m]):
+            assert adj[a, b] != 0, f"non-edge {a}->{b}"
 
 
 def test_sbm_embed_with_hubs_micro_f1(rng):

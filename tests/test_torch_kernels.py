@@ -823,3 +823,71 @@ def test_trial_kernels_at_draw_boundaries(cuda):
     want = trialkernel.trial_accept_plain(dg, one, x, wx, prev, p, q, alpha_np, False)
     _assert_bitwise(got, want)
     assert torch.equal(got[1], below)
+
+
+@pytest.mark.parametrize("p,q", [(0.5, 2.0), (2.0, 0.3)])  # atom on / off
+def test_step_sampler_kernel_route_matches_plain(cuda, p, q):
+    """The per-step sampler with its phases on the trial kernels equals
+    the sampler with ``trial_block_fused`` replaced by the kernels' plain
+    halves, same draws, integer weights: the same samples and the same
+    sweeps, with kernel launches counted."""
+    from pecanpy_tpu_torch.models import engine
+    from pecanpy_tpu_torch.ops import rejection, trialkernel
+    from pecanpy_tpu_torch.ops.layout import device_csr_from_dense
+
+    adj, cap = _hub_graph(23)
+    dg = device_csr_from_dense(adj, degree_cap=cap, device=cuda)
+    assert dg.has_hubs and "cdf" not in dg.channels
+    cu, pr = np.nonzero(adj.T)  # every edge prev -> cur
+    pick = np.random.default_rng(23).choice(cu.size, 2048)
+    cur = torch.from_numpy(cu[pick].astype(np.int32)).to(cuda)
+    prev = torch.from_numpy(pr[pick].astype(np.int32)).to(cuda)
+    cur_rows, prev_rows = dg.gather_rows(cur), dg.gather_rows(prev)
+    active = dg.rows_is_hub(cur_rows) | dg.rows_is_hub(prev_rows)
+    fused = trialkernel.trial_block_fused
+
+    def plain_block(dg, draws, prev, cur, p, q, alpha_np, theta=None, wp=None):
+        x, wx = trialkernel.trial_propose_plain(dg, draws, prev, cur, theta, wp)
+        return trialkernel.trial_accept_plain(dg, draws, x, wx, prev, p, q, alpha_np,
+                                              theta is not None)
+
+    outs = []
+    for block in (fused, plain_block):
+        draws = engine.SamplerDrawStream(5, 0, cuda)
+        before = trialkernel.trial_propose.launches
+        trialkernel.trial_block_fused = block
+        try:
+            outs.append((rejection.second_order_sample(
+                dg, draws, cur, prev, cur_rows, prev_rows, p, q, False, active),
+                rejection.last_sweeps))
+        finally:
+            trialkernel.trial_block_fused = fused
+        launched = trialkernel.trial_propose.launches - before
+        assert (launched > 0) == (block is fused)
+    (got, sweeps), (want, sweeps_plain) = outs
+    assert sweeps == sweeps_plain and 0 < sweeps < rejection.SWEEP_CAP
+    assert torch.equal(got[active], want[active])
+    c, x = cur[active].cpu().numpy(), got[active].cpu().numpy()
+    assert (adj[c, x] != 0).all()
+
+
+def test_resume_byte_equal_on_the_card(cuda, tmp_path):
+    """``embed`` split by ``max_steps`` and resumed from its checkpoint
+    ends byte-equal to an uninterrupted run, bf16 tables on the card."""
+    from pecanpy_tpu_torch import pecanpy
+
+    adj, _ = _hub_graph(29, n=200, float_weights=True)
+    kw = dict(dim=16, num_walks=4, walk_length=10, window_size=3, epochs=2,
+              batch_walks=64, table_dtype="bfloat16")
+
+    def embed(**extra):
+        g = pecanpy.SparseOTF.from_mat(adj, [str(i) for i in range(200)], p=0.5,
+                                       q=2.0, random_state=3, device=cuda)
+        return g.embed(**kw, **extra)
+
+    full = embed()
+    ckdir = str(tmp_path / "ck")
+    partial = embed(checkpoint_dir=ckdir, checkpoint_every=5, max_steps=7)
+    assert not np.array_equal(partial, full)
+    resumed = embed(checkpoint_dir=ckdir, checkpoint_every=5)
+    assert resumed.tobytes() == full.tobytes()

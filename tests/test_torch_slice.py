@@ -38,7 +38,8 @@ def test_port_never_imports_jax():
         "pecanpy_tpu_torch.models.engine, pecanpy_tpu_torch.ops.hubs, "
         "pecanpy_tpu_torch.ops.rejection, pecanpy_tpu_torch.ops.trialkernel, "
         "pecanpy_tpu_torch.experimental, pecanpy_tpu_torch.native, "
-        "pecanpy_tpu_torch.native.loader, pecanpy_tpu_torch.utils.evaluate; "
+        "pecanpy_tpu_torch.native.loader, pecanpy_tpu_torch.utils.evaluate, "
+        "pecanpy_tpu_torch.utils.checkpoint; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert not any(m == 'pecanpy_tpu' or m.startswith('pecanpy_tpu.') "
         "for m in sys.modules), 'pecanpy_tpu imported'"
@@ -88,9 +89,7 @@ def test_cli_karate_reproducible(tmp_path, karate_edg):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--checkpoint-dir", "ck"],
     ["--devices", "2"],
-    ["--profile", "prof"],
 ])
 def test_cli_unported_options_raise(flags, karate_edg, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
