@@ -111,7 +111,36 @@ Phases (any failure raises, and the script exits non-zero):
       2.1 and both trial kernels;
    and prints the ``{"step_sampler": ..., "resume": ...}`` line and the
    trial kernels' launches by path;
-10. prints the kernels JSON line, the ``nvidia-smi`` line, and last
+10. the multi-rank path (``pecanpy_tpu_torch/parallel``) at dim 128 and
+   walk length 80, on phase 4's graph (no hubs) and phase 6's (hubs, cdf
+   channel), with ranks that share the one card over gloo (which copies
+   CUDA tensors through host memory itself):
+   a. 2 ranks, phase 4's graph row-sharded: ``simulate_walks_distributed``
+      on ``MC_STARTS_WALK`` starts with the psum and the all-to-all
+      exchange, byte-equal to the replicated layout's walks on the same
+      draws, sampled steps edges; ms per walk step, bytes per row fetch
+      beside ``exchange_cost_model``'s, bytes gloo copies through the
+      host per step;
+   b. phase 6's graph, ``MC_STARTS_HUB`` starts (a cut of depth),
+      replicated against edge:
+      byte-equal; the trial kernels launch in the replicated run (counted)
+      and never under edge;
+   c. ``embed(n_devices=2, partition="replicated", bf16,
+      max_steps=MC_STEPS_EMBED)`` called in place in both ranks: kernel 2.1
+      launches twice a step on each rank, the ranks' embeddings
+      byte-equal; the count pass's seconds; then ``MC_PROFILE_STEPS``
+      fused steps under ``torch.profiler``: host and device time, idle
+      share, time in the collectives and in gloo's host copies;
+   d. ``train_streaming_multichip`` on phase 4's graph with the start
+      schedule cut to ``MC_STARTS_TRAIN`` (a cut of depth), replicated
+      against edge: byte-equal;
+   e. ``model_parallel=2`` (1 x 2) against one rank, f32, ``MC_STEPS_TP``
+      steps of d's schedule: allclose at rtol 1e-4, atol 1e-6;
+   f. a one-rank nccl world against a one-rank gloo world: byte-equal;
+   g. the block-model gate through ``embed(n_devices=2)``: micro-F1 0.9;
+   and prints the ``{"multichip": ...}`` line;
+11. prints the kernels JSON line (phase 10's launches added to kernel
+   2.1's and the trial kernels'), the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -1970,6 +1999,374 @@ def phase_profile_cli(tmp):
         f"AMORTIZED=0): {traces[0]}, {len(events)} events, {len(kernels)} kernel "
         f"events; by kernel {found}")
 
+# -- phase 10: the multi-rank path ---------------------------------------------
+
+MC_STARTS_WALK = 65_536  # 10a: starts of the collective-fetch walks
+MC_STARTS_HUB = 16_384  # 10b: starts of the hub walks (a cut of depth: 32,768 took 22 s)
+MC_STEPS_EMBED = 20  # 10c: max_steps of the embed entry point
+MC_STARTS_TRAIN = 1 << 14  # 10d-f: the start schedule, cut to this many starts
+MC_STEPS_TP = 5  # 10e-f: steps of the tensor-parallel and backend runs
+MC_PROFILE_STEPS = 3  # 10c: fused steps under torch.profiler
+MC_WALK_SAMPLE = 2_000  # walks per rank sent back for the edge check
+
+
+def mc_bench_config(dtype="bfloat16"):
+    from pecanpy_tpu_torch.models import sgns
+
+    return sgns.SGNSConfig(dim=DIM, window=WINDOW, seed=0, table_dtype=dtype)
+
+
+def mc_host_graph(path, **kw):
+    """The host layout (CPU tensors) of a ``.csr.npz`` graph in SparseOTF."""
+    from pecanpy_tpu_torch import pecanpy
+
+    g = pecanpy.SparseOTF(p=0.5, q=2.0, random_state=0, device="cpu", **kw)
+    g.read_npz(path, weighted=True, implicit_ids=True)
+    return g.get_host_graph()
+
+
+def mc_digest(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def mc_step_profile(trainer, steps=MC_PROFILE_STEPS, seed=0, prof_out=None):
+    """Host and device time of ``steps`` fused steps of ``trainer`` (its
+    tables from ``init_params``, uniform keep probabilities and negatives:
+    at 1M nodes gensim's keep probability is 1 for every node), after one
+    warm-up step: host ms a step, device-busy ms a step, idle share,
+    the host time inside the collective wrappers and the device time of
+    the copies between the card and the host (gloo's, of CUDA tensors)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pecanpy_tpu_torch.models import sgns
+    from pecanpy_tpu_torch.parallel import mesh as mesh_lib
+
+    n, dev = trainer.num_nodes, trainer.mesh.device
+    w_in, w_out = trainer.init_params(seed)
+    keep = torch.ones(n, device=dev)
+    neg = torch.from_numpy(sgns.build_negative_table(np.ones(n), seed=seed)).to(dev)
+    batch = sgns.resolve_batch_walks(trainer.config, n, trainer.walk_length + 1)
+    batch += (-batch) % trainer.mesh.shape["data"]
+    starts = np.random.default_rng(seed).integers(0, n, batch * (steps + 1)).astype(np.int32)
+
+    def step(i):
+        local = trainer.shard_batch(starts[i * batch:(i + 1) * batch])
+        trainer.step(w_in, w_out, local, keep, neg, 0.025,
+                     trainer.walk_draws(seed, i, local.shape[0]),
+                     trainer.step_draws(seed, i, local.shape[0], neg.shape[0]))
+
+    step(0)
+    torch.cuda.synchronize()
+    mesh_lib.reset_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(1, steps + 1):
+            step(i)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy_us = sum(self_device_us(e) for e in events if e.device_type == DeviceType.CUDA)
+    coll_us = sum(e.cpu_time_total for e in events if e.key.startswith("collective:"))
+    copy_us = sum(self_device_us(e) for e in events
+                  if e.device_type == DeviceType.CUDA and "Memcpy" in e.key)
+    if prof_out is not None:
+        prof_out.append(events.table(sort_by="cpu_time_total", row_limit=25))
+    host_ms = 1e3 * host_s / steps
+    return {
+        "walks_per_step": batch,
+        "host_ms": host_ms,
+        "device_ms": busy_us / 1e3 / steps,
+        "idle_share": 1.0 - busy_us / 1e3 / steps / host_ms,
+        "collective_ms": coll_us / 1e3 / steps,
+        "collective_share": coll_us / 1e3 / steps / host_ms,
+        "staging_copy_ms": copy_us / 1e3 / steps,
+        "staged_bytes": mesh_lib.STATS["staged_bytes"] / steps,
+        "collective_calls": mesh_lib.STATS["calls"] / steps,
+    }
+
+
+def mc_rank_path(mesh, bench_path, hub_path, bench_host, hub_host):
+    """One of 2 gloo ranks on one card: phases 10a-10d (see ``phase_multichip``)."""
+    import torch
+
+    from pecanpy_tpu_torch import pecanpy
+    from pecanpy_tpu_torch.models import engine
+    from pecanpy_tpu_torch.ops import apply as apply_lib
+    from pecanpy_tpu_torch.ops import trialkernel
+    from pecanpy_tpu_torch.parallel import distgraph, train
+    from pecanpy_tpu_torch.parallel import mesh as mesh_lib
+
+    out = {"rank": mesh.rank}
+    dev, shard = mesh.device, mesh.data_rank
+
+    # -- a. the collective fetch on the row-sharded bench graph ------------
+    full = train.MultichipTrainer(mesh, bench_host, mc_bench_config(), WALK_LENGTH,
+                                  0.5, 2.0).dg
+    starts = np.random.default_rng(1).integers(0, NODES, MC_STARTS_WALK).astype(np.int32)
+    b = MC_STARTS_WALK // 2
+    mine = torch.from_numpy(starts[shard * b:(shard + 1) * b]).to(dev)
+    u = engine.walk_uniforms(0, (distgraph.WALK_STREAM, 0, shard), WALK_LENGTH, b, dev)
+    ref_w, ref_e = distgraph.walk_batch(full, pecanpy.SparseOTF, 0.5, 2.0, False, mine,
+                                        WALK_LENGTH, u)
+    torch.cuda.synchronize()
+    out["a"] = {"sample": (ref_w[:MC_WALK_SAMPLE].cpu().numpy(),
+                           ref_e[:MC_WALK_SAMPLE].cpu().numpy())}
+    width = bench_host.fused.shape[1]
+    for exchange in ("psum", "alltoall"):
+        distgraph.simulate_walks_distributed(  # warm-up at a short length
+            bench_host, mesh, starts[:4096], 4, 0.5, 2.0, exchange=exchange)
+        torch.cuda.synchronize()
+        mesh_lib.reset_stats()
+        t0 = time.perf_counter()
+        w, e = distgraph.simulate_walks_distributed(
+            bench_host, mesh, starts, WALK_LENGTH, 0.5, 2.0, exchange=exchange)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        model = distgraph.exchange_cost_model(b, 2, width)
+        fetches = WALK_LENGTH + 1  # the start rows, then one fetch a step
+        out["a"][exchange] = {
+            "equal": bool(torch.equal(w, ref_w) and torch.equal(e, ref_e)),
+            "ms_per_step": 1e3 * dt / WALK_LENGTH,
+            "bytes_per_fetch": mesh_lib.STATS["bytes"] / fetches,
+            "model_bytes_per_fetch": model["psum_bytes" if exchange == "psum" else "a2a_bytes"],
+            "staged_bytes_per_step": mesh_lib.STATS["staged_bytes"] / WALK_LENGTH,
+            "collective_calls": mesh_lib.STATS["calls"],
+        }
+    del full, ref_w, ref_e, w, e
+    torch.cuda.empty_cache()
+
+    # -- b. hub graph: replicated (trial kernels) against edge ----------------
+    hub_starts = np.random.default_rng(2).integers(0, NODES, MC_STARTS_HUB).astype(np.int32)
+    res = {}
+    for partition in ("replicated", "edge"):
+        tr = train.MultichipTrainer(mesh, hub_host, mc_bench_config(), WALK_LENGTH, 0.5, 2.0,
+                                    partition=partition)
+        local = tr.shard_batch(hub_starts)
+        reset_counts()
+        mesh_lib.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w, e = tr.walk(local, tr.walk_draws(0, 0, local.shape[0]))
+        torch.cuda.synchronize()
+        res[partition] = {
+            "walks": w, "eff": e, "s": time.perf_counter() - t0,
+            "trial_propose": trialkernel.trial_propose.launches,
+            "trial_accept": trialkernel.trial_accept.launches,
+            "staged_bytes": mesh_lib.STATS["staged_bytes"],
+        }
+        del tr
+    out["b"] = {
+        "equal": bool(torch.equal(res["replicated"]["walks"], res["edge"]["walks"])
+                      and torch.equal(res["replicated"]["eff"], res["edge"]["eff"])),
+        "sample": (res["edge"]["walks"][:MC_WALK_SAMPLE].cpu().numpy(),
+                   res["edge"]["eff"][:MC_WALK_SAMPLE].cpu().numpy()),
+        **{f"{p}_{k}": v[k] for p, v in res.items()
+           for k in ("s", "trial_propose", "trial_accept", "staged_bytes")},
+    }
+    del res
+    torch.cuda.empty_cache()
+
+    # -- c. the entry point: embed inside the ranks ---------------------------
+    g = pecanpy.SparseOTF(p=0.5, q=2.0, random_state=0, device="cuda")
+    g.read_npz(bench_path, weighted=True, implicit_ids=True)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = g.embed(dim=DIM, num_walks=1, walk_length=WALK_LENGTH, window_size=WINDOW,
+                  table_dtype="bfloat16", n_devices=2, partition="replicated",
+                  max_steps=MC_STEPS_EMBED)
+    torch.cuda.synchronize()
+    out["c"] = {
+        "s": time.perf_counter() - t0,
+        "apply_sorted_stream": apply_lib.apply_sorted_stream.launches,
+        "windowed": apply_lib.apply_sorted_stream_windowed.launches,
+        "digest": mc_digest(emb),
+        "finite": bool(np.isfinite(emb).all()),
+        "shape": emb.shape,
+        **{k: train.last_run[k] for k in ("count_s", "train_s", "steps", "batches", "batch")},
+    }
+    del emb, g
+    tr = train.MultichipTrainer(mesh, bench_host, mc_bench_config(), WALK_LENGTH, 0.5, 2.0)
+    out["c"]["profile"] = mc_step_profile(tr)
+    del tr
+    torch.cuda.empty_cache()
+
+    # -- d. replicated == edge through the streaming trainer -------------------
+    sched = np.random.default_rng(3).permutation(NODES)[:MC_STARTS_TRAIN].astype(np.int32)
+    out["d"] = {}
+    for partition in ("replicated", "edge"):
+        tr = train.MultichipTrainer(mesh, bench_host, mc_bench_config(), WALK_LENGTH, 0.5,
+                                    2.0, partition=partition)
+        t0 = time.perf_counter()
+        emb = train.train_streaming_multichip(tr, sched, seed=0)
+        out["d"][partition] = {"digest": mc_digest(emb), "s": time.perf_counter() - t0,
+                               "steps": train.last_run["steps"],
+                               "finite": bool(np.isfinite(emb).all())}
+        del tr, emb
+        torch.cuda.empty_cache()
+    return out
+
+
+def mc_rank_train(mesh, host, dtype, max_steps, whole):
+    """A streaming run on phase 10d's schedule (10e, 10f): rank 0 returns
+    the embeddings' digest, and with ``whole`` the embeddings."""
+    from pecanpy_tpu_torch.parallel import train
+
+    sched = np.random.default_rng(3).permutation(NODES)[:MC_STARTS_TRAIN].astype(np.int32)
+    tr = train.MultichipTrainer(mesh, host, mc_bench_config(dtype), WALK_LENGTH, 0.5, 2.0)
+    emb = train.train_streaming_multichip(tr, sched, seed=0, max_steps=max_steps)
+    if mesh.rank:
+        return None
+    return {"digest": mc_digest(emb), "emb": emb if whole else None, "backend": mesh.backend}
+
+
+def phase_multichip(tmp):
+    """Phase 10: the multi-rank path on the card (see the module docstring)."""
+    from pecanpy_tpu_torch import pecanpy
+    from pecanpy_tpu_torch.parallel import launch
+
+    import torch
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    bench_path = os.path.join(tmp, "bench_graph.csr.npz")
+    hub_path = os.path.join(tmp, "powerlaw_graph.csr.npz")
+    t0 = time.perf_counter()
+    bench_host, hub_host = mc_host_graph(bench_path), mc_host_graph(hub_path)
+    if not hub_host.has_hubs or "cdf" not in hub_host.channels or bench_host.has_hubs:
+        raise AssertionError("phase 10 expects phase 4's graph without hubs and "
+                             "phase 6's with hubs and the cdf channel")
+    bench = np.load(bench_path)
+    hub = np.load(hub_path)
+    log(f"[10 multi-rank] host layouts built in {time.perf_counter() - t0:.1f} s "
+        f"(fused {tuple(bench_host.fused.shape)} and {tuple(hub_host.fused.shape)})")
+
+    t0 = time.perf_counter()
+    ranks = launch.spawn(mc_rank_path, 2, (bench_path, hub_path, bench_host, hub_host),
+                         device="cuda", backend="gloo")
+    log(f"[10a-d] 2 gloo ranks on one card: {time.perf_counter() - t0:.1f} s")
+    summary = {"ranks": 2, "backend": "gloo"}
+
+    # a
+    for r in ranks:
+        for exchange in ("psum", "alltoall"):
+            a = r["a"][exchange]
+            log(f"[10a rank {r['rank']}] {exchange}: byte-equal to the replicated walks "
+                f"{a['equal']}; {a['ms_per_step']:.3f} ms per walk step; "
+                f"{a['bytes_per_fetch']:.0f} B per fetch (cost model "
+                f"{a['model_bytes_per_fetch']}); {a['staged_bytes_per_step']:.0f} B copied "
+                f"through the host per step")
+            if not a["equal"]:
+                raise AssertionError(f"10a: {exchange} walks differ from the replicated ones")
+        n_checked = check_walks_follow_edges(*r["a"]["sample"], bench["indptr"],
+                                             bench["indices"], NODES, MC_WALK_SAMPLE)
+        log(f"[10a rank {r['rank']}] {n_checked} sampled steps are edges")
+    summary["a"] = {ex: {k: ranks[0]["a"][ex][k] for k in (
+        "ms_per_step", "bytes_per_fetch", "model_bytes_per_fetch", "staged_bytes_per_step")}
+        for ex in ("psum", "alltoall")}
+
+    # b
+    trial = {"trial_propose": 0, "trial_accept": 0}
+    for r in ranks:
+        bb = r["b"]
+        log(f"[10b rank {r['rank']}] hub walks replicated {bb['replicated_s']:.2f} s "
+            f"(trial launches {bb['replicated_trial_propose']}, {bb['replicated_trial_accept']}), "
+            f"edge {bb['edge_s']:.2f} s (trial launches {bb['edge_trial_propose']}, "
+            f"{bb['edge_trial_accept']}; {bb['edge_staged_bytes']} B host copies); byte-equal "
+            f"{bb['equal']}")
+        if not bb["equal"]:
+            raise AssertionError("10b: edge hub walks differ from the replicated ones")
+        if not bb["replicated_trial_propose"] or bb["edge_trial_propose"] or bb["edge_trial_accept"]:
+            raise AssertionError("10b: the trial kernels must launch in the replicated run "
+                                 "and never under partition='edge'")
+        if bb["replicated_trial_propose"] != bb["replicated_trial_accept"]:
+            raise AssertionError("10b: trial kernels launched unequal times")
+        check_walks_follow_edges(*bb["sample"], hub["indptr"], hub["indices"], NODES,
+                                 MC_WALK_SAMPLE)
+        for k in trial:
+            trial[k] += bb[f"replicated_{k}"]
+    summary["b"] = {k: ranks[0]["b"][k] for k in ("replicated_s", "edge_s")}
+
+    # c
+    apply_launches = 0
+    for r in ranks:
+        c = r["c"]
+        log(f"[10c rank {r['rank']}] embed(n_devices=2) {c['s']:.1f} s: count pass "
+            f"{c['count_s']:.1f} s over {c['batches']} batches of {c['batch']} walks, "
+            f"{c['steps']} steps in {c['train_s']:.2f} s; kernel 2.1 launches "
+            f"{c['apply_sorted_stream']}")
+        if c["apply_sorted_stream"] != 2 * MC_STEPS_EMBED or c["windowed"]:
+            raise AssertionError(f"10c: kernel 2.1 launched {c['apply_sorted_stream']} times "
+                                 f"(windowed {c['windowed']}), expected {2 * MC_STEPS_EMBED}")
+        if c["shape"] != (NODES, DIM) or not c["finite"]:
+            raise AssertionError(f"10c: embeddings {c['shape']}, finite {c['finite']}")
+        prof = c["profile"]
+        log(f"[10c rank {r['rank']}] fused step ({prof['walks_per_step']} walks): host "
+            f"{prof['host_ms']:.2f} ms, device {prof['device_ms']:.2f} ms, idle share "
+            f"{prof['idle_share']:.3f}, collectives {prof['collective_ms']:.2f} ms "
+            f"(share {prof['collective_share']:.3f}), host copies "
+            f"{prof['staging_copy_ms']:.2f} ms device, {prof['staged_bytes']:.0f} B")
+        apply_launches += c["apply_sorted_stream"]
+    if ranks[0]["c"]["digest"] != ranks[1]["c"]["digest"]:
+        raise AssertionError("10c: the ranks' embeddings differ")
+    summary["c"] = {"embed_s": ranks[0]["c"]["s"], "count_pass_s": ranks[0]["c"]["count_s"],
+                    "batches": ranks[0]["c"]["batches"], "steps": ranks[0]["c"]["steps"],
+                    "step": ranks[0]["c"]["profile"]}
+
+    # d
+    d = ranks[0]["d"]
+    log(f"[10d] train_streaming_multichip on {MC_STARTS_TRAIN} starts: replicated "
+        f"{d['replicated']['s']:.1f} s, edge {d['edge']['s']:.1f} s, "
+        f"{d['edge']['steps']} steps; byte-equal {d['replicated']['digest'] == d['edge']['digest']}")
+    if d["replicated"]["digest"] != d["edge"]["digest"] or not d["edge"]["finite"]:
+        raise AssertionError("10d: edge embeddings differ from the replicated ones")
+    if any(r["d"]["edge"]["digest"] != d["edge"]["digest"] for r in ranks):
+        raise AssertionError("10d: the ranks' embeddings differ")
+    summary["d"] = {p: d[p]["s"] for p in ("replicated", "edge")}
+
+    # e, f
+    runs = {}
+    for name, world, mp, backend in (("tp", 2, 2, "gloo"), ("nccl", 1, 1, "nccl"),
+                                     ("gloo", 1, 1, "gloo")):
+        t0 = time.perf_counter()
+        runs[name] = launch.spawn(
+            mc_rank_train, world, (bench_host, "float32", MC_STEPS_TP, name != "nccl"),
+            model_parallel=mp, device="cuda", backend=backend)[0]
+        log(f"[10e-f] {name}: {world} rank(s), model_parallel {mp}, "
+            f"{runs[name]['backend']}: {time.perf_counter() - t0:.1f} s")
+    diff = float(np.abs(runs["tp"]["emb"] - runs["gloo"]["emb"]).max())
+    log(f"[10e] model_parallel=2 against one rank, f32, {MC_STEPS_TP} steps: max abs "
+        f"difference {diff:.3e} (rtol 1e-4, atol 1e-6)")
+    np.testing.assert_allclose(runs["tp"]["emb"], runs["gloo"]["emb"], rtol=1e-4, atol=1e-6)
+    if runs["nccl"]["digest"] != runs["gloo"]["digest"]:
+        raise AssertionError("10f: the one-rank nccl run differs from the gloo run")
+    log("[10f] one-rank nccl world byte-equal to the one-rank gloo world")
+    summary["e_max_abs_diff"] = diff
+    del runs
+
+    # g
+    rng = np.random.default_rng(0)
+    adj, labels = sbm_graph(rng)
+    gs = pecanpy.SparseOTF.from_mat(adj, [str(i) for i in range(adj.shape[0])],
+                                    random_state=0, device="cuda")
+    t0 = time.perf_counter()
+    with env_set(PECANPY_TPU_DIST_BACKEND="gloo"):
+        emb = gs.embed(dim=32, num_walks=8, walk_length=30, window_size=5, epochs=3,
+                       n_devices=2)
+    f1 = micro_f1_nearest_centroid(emb, labels, rng)
+    log(f"[10g] block-model graph through embed(n_devices=2): micro-F1 {f1:.4f} "
+        f"(gate 0.9) in {time.perf_counter() - t0:.1f} s")
+    if f1 < 0.9:
+        raise AssertionError(f"10g: block-model micro-F1 {f1:.4f} below 0.9")
+    summary["g_micro_f1"] = f1
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"[10] phase 10 took {summary['phase_s']:.1f} s")
+    return summary, apply_launches, trial
+
 
 def main():
     import torch
@@ -2005,16 +2402,19 @@ def main():
         resume = phase_resume(tmp)
         phase_profile_cli(tmp)
         log(f"[9] phase 9 took {time.perf_counter() - t9:.1f} s")
+        multichip, mc_apply, mc_trial = phase_multichip(tmp)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     r_out = 1235 * (WALK_LENGTH + 1) + NEG_POOL
     rows = [
-        ("apply_sorted_stream", "apply.cu", "apply.py:169", launches,
+        ("apply_sorted_stream", "apply.cu", "apply.py:169", launches + mc_apply,
          dict(results[("bfloat16", r_out)], max_abs_err=max_err)),
         ("trial_propose", "trial.cu", "trialkernel.py:84",
-         hub_launches["trial_propose"], dict(hub_results["trial_propose"], library_ms=None)),
+         hub_launches["trial_propose"] + mc_trial["trial_propose"],
+         dict(hub_results["trial_propose"], library_ms=None)),
         ("trial_accept", "trial.cu", "trialkernel.py:166",
-         hub_launches["trial_accept"], dict(hub_results["trial_accept"], library_ms=None)),
+         hub_launches["trial_accept"] + mc_trial["trial_accept"],
+         dict(hub_results["trial_accept"], library_ms=None)),
         ("apply_sorted_stream_windowed", "apply_v2.cu", "apply.py:296", win_launches,
          dict(win_results[("bfloat16", f"R={r_out}")], max_abs_err=win_err)),
     ]
@@ -2041,7 +2441,9 @@ def main():
         "9a_step_sampler_walks": step_launches,
         "9d_step_sampler_embed": {k: resume["launches"][k]
                                   for k in ("trial_propose", "trial_accept")},
+        "10b_replicated_hub_walks": mc_trial,
     }}), flush=True)
+    print(json.dumps({"multichip": multichip}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -189,17 +189,31 @@ def parse_args(argv=None):
         "lr schedule stays pinned to the full plan).",
     )
     parser.add_argument(
-        "--devices", type=int, default=None, help="Only 1 is ported."
+        "--devices",
+        type=int,
+        default=None,
+        help="Run the fused multi-device pipeline over this many ranks, one "
+        "process each (walkers data-parallel, tables tensor-parallel); "
+        "ranks that share a card need PECANPY_TPU_DIST_BACKEND=gloo.",
     )
     parser.add_argument(
-        "--model-parallel", type=int, default=1, help="Only 1 is ported."
+        "--model-parallel",
+        type=int,
+        default=1,
+        help="Tensor-parallel shards for the embedding tables "
+        "(must divide --devices).",
     )
     parser.add_argument(
         "--partition",
         type=str,
         default="auto",
         choices=("auto", "replicated", "edge"),
-        help="Multi-device graph layout; not ported yet.",
+        help="Graph layout over the ranks: 'replicated' (full table per "
+        "rank), 'edge' (table row-sharded over the data ranks with "
+        "collective row fetches: graphs bigger than one card's memory), "
+        "or 'auto' (edge once the tables exceed the per-rank budget, "
+        "PECANPY_TPU_REPLICATED_BUDGET_MB, default half the card's "
+        "memory). Both layouts train bit-identical embeddings.",
     )
     parser.add_argument(
         "--device",
@@ -383,6 +397,12 @@ def _run(args):
         return
     preprocess(g)
     if args.task == "walks":
+        if args.devices is not None and args.devices > 1:
+            warnings.warn(
+                "--task walks runs single-device; --devices is ignored "
+                "(use the default embedding task for multi-device runs)",
+                stacklevel=2,
+            )
         Timer("generate walks", args.verbose)(export_walks)(args, g)
         return
     if args.trainer == "sequential":

@@ -13,15 +13,17 @@ Reproducibility: a fixed ``random_state`` fixes the start-node shuffle
 the torch generators of every walk chunk and training step. The port and
 the JAX package agree in distribution, not sample for sample.
 """
+import dataclasses
 import time
 import warnings
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from pecanpy_tpu_torch.graph import BaseGraph
 from pecanpy_tpu_torch.models import engine
+from pecanpy_tpu_torch.ops import layout
 from pecanpy_tpu_torch.ops.layout import DEFAULT_DEGREE_CAP, DeviceCSR
 from pecanpy_tpu_torch.typing import Embeddings
 from pecanpy_tpu_torch.wrappers import Timer
@@ -31,8 +33,6 @@ DEFAULT_WALKER_BATCH = 131072
 # max over lanes of summed geometric retries) grows with the batch
 # (``pecanpy_tpu/models/base.py``)
 DEFAULT_HUB_WALKER_BATCH = 32768
-
-ROADMAP_SLICES = "see ROADMAP.md, 'Modules to port'"
 
 
 def resolve_device(device) -> torch.device:
@@ -46,6 +46,37 @@ def resolve_device(device) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}; use 'cuda' or 'cpu'")
     return device
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkSpec:
+    """How a mode walks, as the multi-rank path needs it (``parallel/``).
+
+    A class attribute of each mode (``Base.WALK_SPEC``) that also drives
+    its single-device ``make_step_fns`` and ``_draw_width``. Picklable: the
+    mode class travels to spawned ranks by reference.
+
+    Args:
+        fns: module-level factory ``(p, q, extend) -> (first_fn, step_fn)``.
+        hub_engine: hub graphs walk with the amortized hub walker (the OTF
+            modes), not the scan engine over ``fns``.
+        hub_draw_width: uniforms a scan-engine step draws on a hub graph.
+        edge: the walks run on a row-sharded graph (``partition="edge"``).
+    """
+
+    fns: Callable
+    hub_engine: bool = False
+    hub_draw_width: int = 1
+    edge: bool = True
+
+    def step_fns(self, p: float, q: float, extend: bool):
+        return self.fns(p, q, extend)
+
+    def uses_hub_engine(self, dg: DeviceCSR) -> bool:
+        return self.hub_engine and dg.has_hubs
+
+    def draw_width(self, dg: DeviceCSR) -> int:
+        return self.hub_draw_width if dg.has_hubs else 1
 
 
 class Base(BaseGraph):
@@ -96,6 +127,7 @@ class Base(BaseGraph):
         self._resolved_seed: Optional[int] = None
         self.walker_batch = walker_batch
         self._device_graph: Optional[DeviceCSR] = None
+        self._host_graph: Optional[DeviceCSR] = None
         self._preprocessed: bool = False
 
     # -- device graph -------------------------------------------------------
@@ -109,16 +141,44 @@ class Base(BaseGraph):
             self._device_graph = self._build_device_graph()
         return self._device_graph
 
+    def get_host_graph(self) -> DeviceCSR:
+        """The fused layout with its tables on the CPU (the multi-rank
+        path's input: each rank copies the whole graph, or only its row
+        slice, onto its own device). Reuses the device layout when it was
+        already built; never builds on the card."""
+        if self._device_graph is not None:
+            return layout.host_graph(self._device_graph)
+        if self._host_graph is None:
+            self._host_graph = self._build_device_graph(device="cpu")
+        return self._host_graph
+
     # -- mode plug points ----------------------------------------------------
+
+    # the mode's walk (``WalkSpec``); None for modes whose step functions
+    # close over per-instance state (PreComp, node2vec++), which have no
+    # multi-rank path
+    WALK_SPEC: Optional[WalkSpec] = None
+
+    @classmethod
+    def walk_spec(cls) -> WalkSpec:
+        """The mode's ``WalkSpec``; raises for a mode without one."""
+        if cls.WALK_SPEC is None:
+            raise ValueError(
+                f"mode {cls.__name__!r} has no multichip trainer path (PreComp's "
+                "per-edge tables are not replicable at scale; use SparseOTF)"
+            )
+        return cls.WALK_SPEC
 
     def make_step_fns(self):
         """Return (first_fn, step_fn), each taking (dg, u, ...)."""
-        raise NotImplementedError
+        return self.walk_spec().step_fns(self.p, self.q, self.extend)
 
     def _draw_width(self) -> int:
         """Uniforms each walk step draws (the step functions' ``u`` is
-        [B, width]); 1 unless a mode needs more."""
-        return 1
+        [B, width]); 1 unless the mode's spec needs more."""
+        if self.WALK_SPEC is None:
+            return 1
+        return self.WALK_SPEC.draw_width(self.get_device_graph())
 
     def preprocess_transition_probs(self):
         """Build device-resident state ahead of walking (the device graph)."""
@@ -307,8 +367,18 @@ class Base(BaseGraph):
         ``n_devices > 1``, ``streaming=True`` nor ``checkpoint_dir``
         (``ValueError``).
 
-        Not ported yet, and raising ``NotImplementedError``:
-        ``n_devices > 1`` (slice D).
+        ``n_devices > 1`` trains on that many ranks (``parallel/``):
+        walkers split over ``n_devices / model_parallel`` data ranks, the
+        tables split along ``dim`` over ``model_parallel`` ranks, and the
+        graph replicated or row-sharded (``partition``; "auto" shards once
+        its tables exceed ``PECANPY_TPU_REPLICATED_BUDGET_MB``, default
+        half a card's memory). In a process without a process group it
+        spawns the ranks and returns rank 0's embeddings; inside an
+        initialized group (``parallel.multihost.initialize``, torchrun)
+        every rank runs the call in place and gets the embeddings. Ranks
+        take ``cuda:(rank % device_count)`` (or the CPU with
+        ``device="cpu"``); ranks that share a card need
+        ``PECANPY_TPU_DIST_BACKEND=gloo``.
         """
         from pecanpy_tpu_torch.models import sgns
 
@@ -339,12 +409,6 @@ class Base(BaseGraph):
                     "trainer='sequential' (the host gensim loop) has no "
                     "checkpoint/resume support; use the batched trainer"
                 )
-        if n_devices is not None and n_devices > 1:
-            raise NotImplementedError(
-                f"n_devices > 1: multi-device training is not ported yet "
-                f"({ROADMAP_SLICES}, slice D)"
-            )
-
         config = sgns.SGNSConfig(
             dim=dim,
             window=window_size,
@@ -372,6 +436,13 @@ class Base(BaseGraph):
                 "trainer, epochs=2 matches the sequential reference "
                 "(micro-F1 0.542 vs 0.541 at BlogCatalog scale)",
                 stacklevel=2,
+            )
+
+        if n_devices is not None and n_devices > 1:
+            return self._embed_multichip(
+                config, n_devices, model_parallel, partition, num_walks,
+                walk_length, epochs, verbose, checkpoint_dir, checkpoint_every,
+                max_steps,
             )
 
         if streaming is None:
@@ -406,3 +477,51 @@ class Base(BaseGraph):
             max_steps=max_steps, verbose=verbose,
             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
         )
+
+    def _embed_multichip(
+        self, config, n_devices, model_parallel, partition, num_walks,
+        walk_length, epochs, verbose, checkpoint_dir, checkpoint_every,
+        max_steps,
+    ) -> Embeddings:
+        """``embed(n_devices > 1)``: the streaming pipeline of
+        ``parallel/train.py`` on ``n_devices`` ranks (JAX ``base.py``'s
+        multichip branch)."""
+        import torch.distributed as dist
+
+        from pecanpy_tpu_torch.parallel import launch, mesh as mesh_lib, train
+
+        mode = type(self)
+        spec = mode.walk_spec()  # before any rank starts
+        mesh_lib.mesh_grid(n_devices, model_parallel)
+        host = self.get_host_graph()
+        partition = train.resolve_partition(
+            partition,
+            layout.graph_table_bytes(host),
+            n_devices // model_parallel,
+            edge_supported=spec.edge,
+            device=mesh_lib.rank_device(0, self.device),
+        )
+        if verbose:
+            print(f"multichip graph partition: {partition}", flush=True)
+        trainer_args = (host, config, walk_length, self.p, self.q, self.extend, mode, partition)
+        kwargs = dict(
+            epochs=epochs, verbose=verbose, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, max_steps=max_steps,
+        )
+        timer = Timer("multichip walks + training", verbose)
+        if dist.is_initialized():  # every rank runs this call in place
+            mesh = mesh_lib.make_mesh(n_devices, model_parallel, device=self.device)
+            # one seed for the world: with random_state=None each process
+            # would draw its own, and with it its own shuffle, init and walks
+            seed = torch.tensor([self._seed()], dtype=torch.int64, device=mesh.device)
+            dist.broadcast(seed, src=0)
+            self._resolved_seed = int(seed)
+            trainer = train.MultichipTrainer(mesh, *trainer_args)
+            return timer(train.train_streaming_multichip)(
+                trainer, self._start_nodes(num_walks), seed=self._seed(), **kwargs
+            )
+        return timer(launch.spawn)(
+            train.embed_rank, n_devices, (trainer_args, self._start_nodes(num_walks)),
+            dict(kwargs, seed=self._seed()), model_parallel=model_parallel,
+            device=self.device,
+        )[0]

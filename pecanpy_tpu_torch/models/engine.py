@@ -66,15 +66,18 @@ FIRST = -1
 SAMPLER_STREAM = 1
 
 
-def _chunk_generator(seed: int, chunk_idx: int, device, stream: int = 0) -> torch.Generator:
-    entropy = [seed, chunk_idx] + ([stream] if stream else [])
+def _chunk_generator(seed: int, chunk_idx, device, stream: int = 0) -> torch.Generator:
+    """A generator seeded from ``SeedSequence([seed, chunk_idx(, stream)])``;
+    ``chunk_idx`` may be a tuple of ints (the multi-rank path's
+    ``(stream, batch, data rank)``)."""
+    entropy = [seed, *np.atleast_1d(chunk_idx).tolist()] + ([stream] if stream else [])
     gen = torch.Generator(device=device)
     gen.manual_seed(int(np.random.SeedSequence(entropy).generate_state(1)[0]))
     return gen
 
 
 def walk_uniforms(
-    seed: int, chunk_idx: int, walk_length: int, batch: int, device, width: int = 1
+    seed: int, chunk_idx, walk_length: int, batch: int, device, width: int = 1
 ) -> torch.Tensor:
     """[walk_length, batch, width] uniforms of one walk chunk, ``width``
     per walker and step.
@@ -102,7 +105,7 @@ class TrialDrawStream:
     ``walk_uniforms`` is, so the chunk stream is reproducible. Round FIRST
     draws one trial, every other round ``trials``."""
 
-    def __init__(self, seed: int, chunk_idx: int, trials: int, device):
+    def __init__(self, seed: int, chunk_idx, trials: int, device):
         self.gen = _chunk_generator(seed, chunk_idx, device)
         self.trials = trials
 
@@ -183,7 +186,7 @@ def _trial_fn(graph: DeviceCSR, p, q, extend, alpha_np, use_cdf):
     graph) on ``cur_rows`` and prev's row gathered here."""
 
     def run(draws, prev, cur, cur_rows, theta, wp, force_ok=None):
-        if not rejection.use_trial_kernels(extend, cur.device):
+        if not rejection.use_trial_kernels(extend, graph):
             return rejection._trial_block(
                 graph, draws.trials(), prev, cur_rows, graph.gather_rows(prev), p, q,
                 extend, alpha_np, theta, wp, mode="auto", use_cdf=use_cdf,
@@ -443,7 +446,10 @@ def generate_walks_amortized(
     unroll = max(int(unroll), 1)
 
     def pending_count() -> int:
-        return int((alive & (step <= walk_length)).sum())
+        n = (alive & (step <= walk_length)).sum(dtype=torch.int32)
+        if graph.loop_sync is not None:  # every rank runs the same rounds
+            n = graph.loop_sync(n)
+        return int(n)
 
     t = 0
     pending = pending_count()

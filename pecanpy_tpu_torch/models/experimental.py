@@ -13,10 +13,10 @@ class Node2vecPlusPlus(_DenseModeBase):
     (whatever ``extend`` says); dense-only, so fused rows stay uncapped.
     """
 
-    def _build_device_graph(self) -> DeviceCSR:
+    def _build_device_graph(self, device=None) -> DeviceCSR:
         return device_csr_from_dense(
             self.data, gamma=self.gamma, with_thresholds=True,
-            degree_cap=None, device=self.device,
+            degree_cap=None, device=device or self.device,
         )
 
     def make_step_fns(self):

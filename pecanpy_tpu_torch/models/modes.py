@@ -21,7 +21,7 @@ import torch
 
 from pecanpy_tpu_torch.graph import DenseGraph, SparseGraph
 from pecanpy_tpu_torch.models import engine
-from pecanpy_tpu_torch.models.base import Base
+from pecanpy_tpu_torch.models.base import Base, WalkSpec
 from pecanpy_tpu_torch.ops import rejection, sampling, transition
 from pecanpy_tpu_torch.ops.layout import (
     LANE,
@@ -65,7 +65,7 @@ class _SparseModeBase(Base, SparseGraph):
     _needs_cdf_channel = False
     _cdf_for_hubs = False
 
-    def _build_device_graph(self) -> DeviceCSR:
+    def _build_device_graph(self, device=None) -> DeviceCSR:
         deg_max = int(np.diff(self.indptr).max()) if self.num_edges else 0
         return build_device_csr(
             self.indptr,
@@ -75,7 +75,7 @@ class _SparseModeBase(Base, SparseGraph):
             with_thresholds=self.extend,
             with_cdf=_want_cdf(self, deg_max),
             degree_cap=self.degree_cap,
-            device=self.device,
+            device=device or self.device,
         )
 
 
@@ -85,7 +85,7 @@ class _DenseModeBase(Base, DenseGraph):
     _needs_cdf_channel = False
     _cdf_for_hubs = False
 
-    def _build_device_graph(self) -> DeviceCSR:
+    def _build_device_graph(self, device=None) -> DeviceCSR:
         dense = np.asarray(self.data)
         nonzero_per_row = (dense != 0).sum(axis=1)
         deg_max = int(nonzero_per_row.max()) if nonzero_per_row.size else 0
@@ -95,7 +95,7 @@ class _DenseModeBase(Base, DenseGraph):
             with_thresholds=self.extend,
             with_cdf=_want_cdf(self, deg_max),
             degree_cap=self.degree_cap,
-            device=self.device,
+            device=device or self.device,
         )
 
 
@@ -141,6 +141,45 @@ def _otf_step_fns(p: float, q: float, extend: bool):
         return nxt
 
     return first_fn, step_fn
+
+
+def _first_order_fns(move):
+    """(first_fn, step_fn) of a first-order mode: both steps ``move``."""
+
+    def first_fn(dg, u, cur, cur_rows):
+        return move(dg, u, cur_rows)
+
+    def step_fn(dg, u, cur, prev, cur_rows, prev_rows):
+        return move(dg, u, cur_rows)
+
+    return first_fn, step_fn
+
+
+def first_order_unweighted_fns(p=1.0, q=1.0, extend=False):
+    """FirstOrderUnweighted's steps: a uniform slot of the row, or of a
+    hub's edges (``p``, ``q`` and ``extend`` play no part)."""
+
+    def move(dg, u, cur_rows):
+        kk = rejection.slot_offsets(u[:, 0], dg.rows_degree(cur_rows))
+        return rejection.uniform_propose(dg, kk, cur_rows)
+
+    return _first_order_fns(move)
+
+
+def precomp_first_order_fns(p=1.0, q=1.0, extend=False):
+    """PreCompFirstOrder's steps: the row's cdf channel, or a hub's alias
+    slot from the step's second and third uniforms (``p``, ``q`` and
+    ``extend`` play no part)."""
+
+    def move(dg, u, cur_rows):
+        kk = u_self = None
+        if dg.has_hubs:
+            kk = rejection.slot_offsets(u[:, 1], dg.rows_degree(cur_rows))
+            u_self = u[:, 2]
+        x, _ = rejection.propose(dg, u[:, :1], cur_rows, True, kk, u_self)
+        return x
+
+    return _first_order_fns(move)
 
 
 class _AmortizedOTFMixin:
@@ -204,16 +243,14 @@ class SparseOTF(_AmortizedOTFMixin, _SparseModeBase):
     """Compute second-order probabilities on the fly each step (default
     mode; reference ``pecanpy.py:510-561``)."""
 
-    def make_step_fns(self):
-        return _otf_step_fns(self.p, self.q, self.extend)
+    WALK_SPEC = WalkSpec(_otf_step_fns, hub_engine=True)
 
 
 class DenseOTF(_AmortizedOTFMixin, _DenseModeBase):
     """OTF walking from a dense adjacency input (reference
     ``pecanpy.py:564-614``): the same transition law as SparseOTF."""
 
-    def make_step_fns(self):
-        return _otf_step_fns(self.p, self.q, self.extend)
+    WALK_SPEC = SparseOTF.WALK_SPEC
 
 
 class FirstOrderUnweighted(_SparseModeBase):
@@ -221,18 +258,7 @@ class FirstOrderUnweighted(_SparseModeBase):
     ``pecanpy.py:293-309``): the next node is a uniform entry of the row,
     of a hub's edges on a hub graph."""
 
-    def make_step_fns(self):
-        def move(dg, u, cur_rows):
-            kk = rejection.slot_offsets(u[:, 0], dg.rows_degree(cur_rows))
-            return rejection.uniform_propose(dg, kk, cur_rows)
-
-        def first_fn(dg, u, cur, cur_rows):
-            return move(dg, u, cur_rows)
-
-        def step_fn(dg, u, cur, prev, cur_rows, prev_rows):
-            return move(dg, u, cur_rows)
-
-        return first_fn, step_fn
+    WALK_SPEC = WalkSpec(first_order_unweighted_fns)
 
 
 class PreCompFirstOrder(_SparseModeBase):
@@ -244,26 +270,8 @@ class PreCompFirstOrder(_SparseModeBase):
     the row's, the slot's and the alias coin's (JAX: ``split(key)``)."""
 
     _needs_cdf_channel = True
-
-    def _draw_width(self) -> int:
-        return 3 if self.get_device_graph().has_hubs else 1
-
-    def make_step_fns(self):
-        def move(dg, u, cur_rows):
-            kk = u_self = None
-            if dg.has_hubs:
-                kk = rejection.slot_offsets(u[:, 1], dg.rows_degree(cur_rows))
-                u_self = u[:, 2]
-            x, _ = rejection.propose(dg, u[:, :1], cur_rows, True, kk, u_self)
-            return x
-
-        def first_fn(dg, u, cur, cur_rows):
-            return move(dg, u, cur_rows)
-
-        def step_fn(dg, u, cur, prev, cur_rows, prev_rows):
-            return move(dg, u, cur_rows)
-
-        return first_fn, step_fn
+    # replicated only, as in the JAX package's multichip trainer
+    WALK_SPEC = WalkSpec(precomp_first_order_fns, hub_draw_width=3, edge=False)
 
 
 class PreComp(_SparseModeBase):

@@ -232,10 +232,12 @@ class StepDraws:
 
 def draw_step(
     seed: int, g: int, wb: int, t: int, config: SGNSConfig, table_size: int,
-    device,
+    device, data_rank: Optional[int] = None,
 ) -> StepDraws:
-    """The draws of global step ``g``: a pure function of (seed, g)."""
-    ss = np.random.SeedSequence([int(seed), 1, int(g)])
+    """The draws of global step ``g``: a pure function of (seed, g), and of
+    the data rank on the multi-rank path (``parallel/train.py``)."""
+    entropy = [int(seed), 1, int(g)] + ([] if data_rank is None else [int(data_rank)])
+    ss = np.random.SeedSequence(entropy)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(ss.generate_state(1)[0]))
     host = np.random.default_rng(ss)
@@ -288,11 +290,26 @@ def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((rows,) + tuple(x.shape[1:]))])
 
 
-def make_step_body(num_nodes: int, config: SGNSConfig):
-    """Build the per-chunk training step (one device).
+def make_step_body(num_nodes: int, config: SGNSConfig, model_group=None, data_group=None):
+    """Build the per-chunk training step.
 
     ``step(w_in, w_out, walks, eff_len, keep_prob, neg_table, lr, draws)``
     updates both tables IN PLACE and returns them.
+
+    One device by default. On the multi-rank path (``parallel/train.py``)
+    the same arithmetic runs on every rank with three collective hooks
+    (``parallel/mesh.py`` groups; JAX: ``model_axis`` / ``data_axis``):
+
+    * ``model_group``: the tables hold this rank's column slice of
+      ``dim``; the negative logits and the pair scores are partial dots,
+      summed over the model group before the sigmoid;
+    * ``data_group``: the walk batch is this data rank's slice; the
+      update streams are gathered over the data group (rank 0's first)
+      before the two table passes, so every data rank applies the same
+      full stream and the tables stay identical across data ranks; the
+      stochastic-rounding seed is the data group's minimum.
+
+    With both None the step is the single-device one, bit for bit.
     """
     window = config.window
     k_neg = config.negative
@@ -308,6 +325,9 @@ def make_step_body(num_nodes: int, config: SGNSConfig):
         dim = w_in.shape[1]
         dev = walks.device
         ti = torch.arange(t, device=dev)
+        rng_seed = draws.rng_seed
+        if data_group is not None:  # common to the data ranks (bf16 rounding)
+            rng_seed = int(data_group.all_reduce(torch.tensor(rng_seed, device=dev), "min"))
 
         # 1. Subsample: prune dropped tokens, compact each walk left
         #    (kept tokens first, order stable; the keys are distinct).
@@ -356,6 +376,8 @@ def make_step_body(num_nodes: int, config: SGNSConfig):
             negs = neg_table[draws.neg_slots.long()]  # [Wb, T, K]
             u_neg = w_out[negs.long()].to(torch.float32)  # [Wb, T, K, dim]
             neg_logits = torch.einsum("btd,btkd->btk", v, u_neg)
+        if model_group is not None:  # partial dots over the dim slices
+            neg_logits = model_group.all_reduce(neg_logits)
         g_neg = torch.sigmoid(neg_logits)
 
         # 4. Window interactions as banded batched matmuls:
@@ -369,6 +391,8 @@ def make_step_body(num_nodes: int, config: SGNSConfig):
             & valid_tok[:, None, :]
         ).to(torch.float32)  # [Wb, T, T]
         scores = torch.bmm(uo, v.transpose(1, 2))  # s[i, j] = v(j) . u(i)
+        if model_group is not None:
+            scores = model_group.all_reduce(scores)
         g_pos = (torch.sigmoid(scores) - 1.0) * pm
         du = torch.bmm(g_pos, v)
         dv = torch.bmm(g_pos.transpose(1, 2), uo)
@@ -408,14 +432,20 @@ def make_step_body(num_nodes: int, config: SGNSConfig):
         # 5. Apply: context gradients into W_in; W_out takes the center
         #    stream and the negative stream in ONE merged pass, as
         #    separate normalization groups.
+        streams = [
+            ids_tok, dv.reshape(-1, dim), cnt_v.reshape(-1), du.reshape(-1, dim),
+            cnt_u.reshape(-1), negs_flat, du_neg_flat, c_v_flat,
+        ]
+        if data_group is not None:  # the full stream on every data rank
+            streams = [data_group.all_gather(x) for x in streams]
+        ids_tok, dv_f, cnt_v_f, du_f, cnt_u_f, negs_flat, du_neg_flat, c_v_flat = streams
         apply_mean_updates(
-            w_in, ids_tok, dv.reshape(-1, dim), cnt_v.reshape(-1), lr,
-            cap=cap, rng_seed=draws.rng_seed,
+            w_in, ids_tok, dv_f, cnt_v_f, lr, cap=cap, rng_seed=rng_seed,
         )
         apply_mean_updates_two(
-            w_out, ids_tok, du.reshape(-1, dim), cnt_u.reshape(-1),
+            w_out, ids_tok, du_f, cnt_u_f,
             negs_flat, du_neg_flat, c_v_flat, lr,
-            cap_a=cap, cap_b=cap, rng_seed=draws.rng_seed + 2,
+            cap_a=cap, cap_b=cap, rng_seed=rng_seed + 2,
         )
         return w_in, w_out
 

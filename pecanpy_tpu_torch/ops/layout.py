@@ -119,6 +119,14 @@ class DeviceCSR:
     def num_nodes(self) -> int:
         return self.fused.shape[0]
 
+    @property
+    def loop_sync(self):
+        """None: a local graph, whose walkers run their own loop counts.
+        A row-sharded graph (``parallel/distgraph.py``) returns the sum of a
+        count over its ranks, so that every rank runs the same rounds and
+        the same collective fetches (JAX: ``loop_sync_axis``)."""
+        return None
+
     def channel(self, rows: torch.Tensor, name: str) -> torch.Tensor:
         """Slice channel ``name`` out of gathered fused rows [B, C * dpad]."""
         c = self.channels.index(name)
@@ -453,6 +461,53 @@ def device_csr_from_dense(
         symmetric=symmetric,
         device=device,
     )
+
+
+# the tensor fields of a ``DeviceCSR``
+TABLE_FIELDS = ("fused", "deg", "threshold", "indptr", "edge_pack", "hbuckets")
+
+
+def to_device(dg: DeviceCSR, device) -> DeviceCSR:
+    """``dg`` with every table on ``device``."""
+    return dataclasses.replace(
+        dg, **{f: getattr(dg, f).to(device) for f in TABLE_FIELDS}
+    )
+
+
+def host_graph(dg: DeviceCSR) -> DeviceCSR:
+    """``dg`` with every table on the CPU (``pecanpy_tpu/models/base.py``
+    ``get_host_graph``): what a rank lays out on its own device."""
+    return to_device(dg, "cpu")
+
+
+def graph_table_bytes(dg: DeviceCSR) -> int:
+    """Bytes of the graph's tables (fused, hub and auxiliary)."""
+    return sum(
+        getattr(dg, f).numel() * getattr(dg, f).element_size() for f in TABLE_FIELDS
+    )
+
+
+# hash-bucket pad keys read as -1 (never a node id): a clamped probe past
+# the table's end cannot fake a membership hit
+NEG1 = float(np.int32(-1).view(np.float32))
+
+
+def shard_rows(
+    table: torch.Tensor, n_shards: int, shard: int, pad_value: float = 0.0
+) -> Tuple[torch.Tensor, int]:
+    """Rank ``shard``'s contiguous row slice of ``table`` padded to a
+    multiple of ``n_shards`` rows (``distgraph.py:_shard_rows``): returns
+    (the slice, rows per shard). Pad rows of the fused table read as
+    zero-degree rows; no walker reaches them (node ids stay below N)."""
+    r = table.shape[0]
+    rows = max(-(-r // n_shards), 1)
+    lo, hi = shard * rows, (shard + 1) * rows
+    part = table[lo:min(hi, r)]
+    pad = rows - part.shape[0]
+    if pad:
+        fill = table.new_full((pad,) + tuple(table.shape[1:]), pad_value)
+        part = torch.cat([part, fill])
+    return part, rows
 
 
 def from_numpy(host, device="cpu") -> DeviceCSR:

@@ -379,11 +379,13 @@ def _compact_indices(pending: torch.Tensor, s: int):
 PhaseDrawFn = Callable[[int, torch.Tensor, int], RoundDraws]
 
 
-def use_trial_kernels(extend: bool, device) -> bool:
+def use_trial_kernels(extend: bool, dg: DeviceCSR) -> bool:
     """The route of every hub trial block: the CUDA trial kernels (on node
-    ids) for node2vec on the card; the plain ``_trial_block`` (on gathered
-    rows) for node2vec+ and on the CPU."""
-    return not extend and torch.device(device).type != "cpu"
+    ids) for node2vec on a graph held whole on the card; the plain
+    ``_trial_block`` (on gathered rows) for node2vec+, on the CPU, and on
+    a row-sharded graph (``dg.loop_sync`` set), whose rows the kernels
+    cannot read by node id (the JAX package's rule too)."""
+    return not extend and dg.fused.device.type != "cpu" and dg.loop_sync is None
 
 
 def second_order_sample(
@@ -433,7 +435,7 @@ def second_order_sample(
         theta_full = _theta_from(dg, wp_full, cur_rows, excess, alpha_np)
     # slot b of the two buffers takes the writes of invalid slots
     nxt = torch.cat([cur, cur[:1]])
-    kernels = use_trial_kernels(extend, cur.device)
+    kernels = use_trial_kernels(extend, dg)
     if kernels:
         from pecanpy_tpu_torch.ops import trialkernel  # imports this module
 
@@ -472,7 +474,10 @@ def second_order_sample(
 
     t = 0
     while t < SWEEP_CAP:
-        counts = torch.stack([pnd.sum() for pnd, _ in groups]).tolist()  # host read
+        counts = torch.stack([pnd.sum(dtype=torch.int32) for pnd, _ in groups])
+        if dg.loop_sync is not None:  # every rank runs the same sweeps
+            counts = dg.loop_sync(counts)
+        counts = counts.tolist()  # host read
         if not any(counts):
             break
         for g, (pending, mode) in enumerate(groups):

@@ -3,7 +3,7 @@
 
     python3 profile_port.py [--out chiprun_out/profile_port.txt]
                             [--sections walks,sgns,hub,stepsampler,precomp,apply,apply-sweep,
-                                        trial-sweep,quality]
+                                        trial-sweep,quality,multichip]
                             [--trial-baseline OLD_TRIAL_CU]
 
 Runs the configurations of ``chip_smoke.py`` (p=0.5, q=2, walks of 80
@@ -42,6 +42,14 @@ steps) and measures these steady-state windows:
   from the committed source, and with other values of its constants
   (``TRIAL_SWEEP``), each build in a process of its own, in turns; every
   build is held bit-equal to the plain halves before it is timed;
+- multichip: on the main path's graph, 2 ranks sharing the card over
+  gloo (``pecanpy_tpu_torch/parallel``), ``MULTICHIP_STEPS`` fused
+  walk + SGNS steps of ``MultichipTrainer`` per rank after one warm-up
+  step, replicated and edge-partitioned, each under ``torch.profiler``
+  in its rank: host and device-busy ms a step, idle share, the host time
+  in the collective wrappers (the gloo calls, whose copies of CUDA tensors
+  through the host included), the device time of those copies, and the
+  rest (the step body);
 - quality: ``chip_smoke.py`` phase 8's protocol graph (10,312 nodes, read
   by the native parser), the two arms too slow for every smoke run: the
   batched trainer at epochs=2 and the sequential trainer on one thread
@@ -65,6 +73,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 WARMUP_STEPS = 5
 WINDOW_STEPS = 20
+MULTICHIP_STEPS = 5
 TOP_OPS = 25
 
 
@@ -117,7 +126,7 @@ def main():
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "profile_port.txt"))
     ap.add_argument("--sections", default="walks,sgns,hub,precomp",
                     help="comma-separated subset of walks, sgns, hub, stepsampler, precomp, "
-                         "apply, apply-sweep, trial-sweep, quality")
+                         "apply, apply-sweep, trial-sweep, quality, multichip")
     ap.add_argument("--apply-lib", help="with --sections apply-lib: time kernel 2.1 "
                     "from this build of the library (the sweep's own processes)")
     ap.add_argument("--trial-baseline", help="with --sections trial-sweep: an earlier "
@@ -162,6 +171,8 @@ def main():
             profile_stepsampler(tmp, out)
         if "quality" in sections:
             profile_quality(tmp, out)
+        if "multichip" in sections:
+            profile_multichip(tmp, out)
         log(f"[done] op tables in {os.path.relpath(args.out, REPO)}")
 
 
@@ -782,6 +793,58 @@ def profile_quality(tmp, out):
     walks, eff = g.simulate_walks_device(10, WALK_LENGTH)
     profile_sgns(walks, eff, "quality sgns", out, num_nodes=g.num_nodes)
     log(json.dumps({"quality_profile": record}))
+
+
+
+def multichip_rank(mesh, host, steps):
+    """One rank of the multichip section: the profiled steps, replicated
+    then edge-partitioned, each with its op table."""
+    import torch
+
+    from chip_smoke import WALK_LENGTH, mc_bench_config, mc_step_profile
+    from pecanpy_tpu_torch.parallel import train
+
+    res = {}
+    for partition in ("replicated", "edge"):
+        tr = train.MultichipTrainer(mesh, host, mc_bench_config(), WALK_LENGTH, 0.5, 2.0,
+                                    partition=partition)
+        tables = []
+        res[partition] = mc_step_profile(tr, steps=steps, prof_out=tables)
+        res[partition]["table"] = tables[0]
+        del tr
+        torch.cuda.empty_cache()
+    return res
+
+
+def profile_multichip(tmp, out):
+    import json
+
+    from chip_smoke import MEAN_DEGREE, NODES, build_bench_graph, mc_host_graph
+    from pecanpy_tpu_torch.parallel import launch
+
+    indptr, indices, data = build_bench_graph(NODES, MEAN_DEGREE)
+    path = os.path.join(tmp, "bench_graph.csr.npz")
+    np.savez(path, indptr=indptr, indices=indices, data=data)
+    host = mc_host_graph(path)
+    t0 = time.perf_counter()
+    ranks = launch.spawn(multichip_rank, 2, (host, MULTICHIP_STEPS), device="cuda",
+                         backend="gloo")
+    log(f"[multichip] 2 gloo ranks on one card, {time.perf_counter() - t0:.1f} s")
+    summary = {}
+    for rank, res in enumerate(ranks):
+        for partition, r in res.items():
+            table = r.pop("table")
+            out.write(f"== multichip rank {rank} {partition}: {MULTICHIP_STEPS} fused steps "
+                      f"==\n{table}\n")
+            r["body_ms"] = r["host_ms"] - r["collective_ms"]
+            log(f"[multichip rank {rank} {partition}] {r['walks_per_step']} walks a step: "
+                f"host {r['host_ms']:.2f} ms, device busy {r['device_ms']:.2f} ms, idle "
+                f"share {r['idle_share']:.3f}; collectives {r['collective_ms']:.2f} ms "
+                f"({r['collective_calls']:.0f} calls, {r['staged_bytes']:.0f} B host copies, "
+                f"{r['staging_copy_ms']:.2f} ms device); step body "
+                f"{r['body_ms']:.2f} ms")
+            summary[f"rank{rank}_{partition}"] = r
+    log(json.dumps({"multichip_profile": summary}))
 
 
 if __name__ == "__main__":

@@ -26,6 +26,8 @@ tests hold kernel 2.1 to its plain version bit for bit, f32 and bf16:
 both add each row's payload in stream order from 0, so the f32 sums and
 the rounding bits are the same.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -891,3 +893,85 @@ def test_resume_byte_equal_on_the_card(cuda, tmp_path):
     assert not np.array_equal(partial, full)
     resumed = embed(checkpoint_dir=ckdir, checkpoint_every=5)
     assert resumed.tobytes() == full.tobytes()
+
+
+# -- the multi-rank path: 2 gloo ranks sharing the card --------------------------
+
+
+def _host_hub_graph(seed, n=300):
+    """A float-weight hub graph's host layout with the cdf channel."""
+    from pecanpy_tpu_torch.ops.layout import device_csr_from_dense
+
+    adj, cap = _hub_graph(seed, n=n, float_weights=True)
+    return adj, device_csr_from_dense(adj, degree_cap=cap, with_cdf=True, device="cpu")
+
+
+@pytest.mark.parametrize("exchange", ["psum", "alltoall"])
+def test_collective_fetch_two_ranks_on_one_card(cuda, exchange):
+    """Each rank's rows fetched through the row-sharded table (CUDA tensors
+    staged through gloo) are the rows a local gather returns, to the bit."""
+    from pecanpy_tpu_torch.parallel import distgraph, launch
+
+    _, host = _host_hub_graph(41)
+    idx = np.random.default_rng(0).integers(0, 300, (2, 4096)).astype(np.int32)
+    calls = [(distgraph.fetch_rows, (host,), dict(idx=idx, exchange=exchange))]
+    got = [r[0] for r in launch.spawn(launch.run_calls, 2, (calls,), device="cuda",
+                                      backend="gloo")]
+    want = host.fused[torch.from_numpy(idx).long()]
+    for d in range(2):
+        assert got[d].device.type == "cuda"
+        assert torch.equal(got[d].cpu().view(torch.int32), want[d].view(torch.int32))
+
+
+@pytest.mark.parametrize("hubs", [False, True])
+def test_multirank_step_edge_equals_replicated_bf16(cuda, hubs):
+    """One fused step on 2 ranks sharing the card, bf16 tables: the edge
+    partition (plain trial block on fetched rows) equals the replicated one
+    (trial kernels on a hub graph) to the bit."""
+    from pecanpy_tpu_torch.models import sgns
+    from pecanpy_tpu_torch.ops.layout import device_csr_from_dense
+    from pecanpy_tpu_torch.parallel import launch, train
+
+    if hubs:
+        adj, host = _host_hub_graph(43)
+    else:
+        adj = (np.random.default_rng(5).random((300, 300)) < 0.03).astype(float)
+        adj = np.maximum(adj, adj.T)
+        np.fill_diagonal(adj, 0)
+        adj[np.arange(300), (np.arange(300) + 1) % 300] = 1.0
+        host = device_csr_from_dense(adj, device="cpu")
+    n = adj.shape[0]
+    gen = np.random.default_rng(0)
+    config = sgns.SGNSConfig(dim=32, window=3, negative=2, seed=0, table_dtype="bfloat16")
+    kw = dict(graph=host, config=config, walk_length=10,
+              tables=tuple((gen.standard_normal((n, 32)) * 0.1).astype(np.float32)
+                           for _ in range(2)),
+              starts=np.arange(n, dtype=np.int32).repeat(2), keep_prob=np.ones(n, np.float32),
+              neg_table=np.arange(n, dtype=np.int32), lr=0.025, p=0.5, q=2.0, seed=3)
+    calls = [(train.run_fused_step, (), dict(kw, partition=part))
+             for part in ("replicated", "edge")]
+    rep, edge = launch.spawn(launch.run_calls, 2, (calls,), device="cuda", backend="gloo")[0]
+    for k in ("w_in", "w_out", "counts"):
+        assert rep[k].tobytes() == edge[k].tobytes()
+    assert not np.array_equal(rep["w_out"], kw["tables"][1])
+
+
+def test_trial_route_off_under_edge(cuda):
+    """The trial kernels run on a graph held whole on the card and never on
+    a row-sharded one (or for node2vec+, or on the CPU)."""
+    from types import SimpleNamespace
+
+    from pecanpy_tpu_torch.ops import rejection
+    from pecanpy_tpu_torch.ops.layout import host_graph, to_device
+    from pecanpy_tpu_torch.parallel.distgraph import ShardedDeviceCSR
+
+    _, host = _host_hub_graph(47)
+    card = to_device(host, cuda)
+    assert rejection.use_trial_kernels(False, card)
+    assert not rejection.use_trial_kernels(True, card)
+    assert not rejection.use_trial_kernels(False, host_graph(card))
+    group = SimpleNamespace(all_reduce=lambda t: t, size=1, rank=0)
+    sharded = ShardedDeviceCSR(**{f.name: getattr(card, f.name)
+                                  for f in dataclasses.fields(card)},
+                               global_nodes=card.num_nodes, group=group)
+    assert not rejection.use_trial_kernels(False, sharded)

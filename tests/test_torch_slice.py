@@ -39,7 +39,10 @@ def test_port_never_imports_jax():
         "pecanpy_tpu_torch.ops.rejection, pecanpy_tpu_torch.ops.trialkernel, "
         "pecanpy_tpu_torch.experimental, pecanpy_tpu_torch.native, "
         "pecanpy_tpu_torch.native.loader, pecanpy_tpu_torch.utils.evaluate, "
-        "pecanpy_tpu_torch.utils.checkpoint; "
+        "pecanpy_tpu_torch.utils.checkpoint, pecanpy_tpu_torch.parallel, "
+        "pecanpy_tpu_torch.parallel.mesh, pecanpy_tpu_torch.parallel.multihost, "
+        "pecanpy_tpu_torch.parallel.distgraph, pecanpy_tpu_torch.parallel.train, "
+        "pecanpy_tpu_torch.parallel.launch; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert not any(m == 'pecanpy_tpu' or m.startswith('pecanpy_tpu.') "
         "for m in sys.modules), 'pecanpy_tpu imported'"
@@ -89,10 +92,13 @@ def test_cli_karate_reproducible(tmp_path, karate_edg):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--devices", "2"],
+    ["--devices", "3", "--model-parallel", "2"],
 ])
-def test_cli_unported_options_raise(flags, karate_edg, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_cli_model_parallel_must_divide_devices(flags, karate_edg, tmp_path):
+    """Every option is ported now: the multi-device options raise only
+    where the JAX CLI raises (a model-parallel size that does not divide
+    the devices), before any rank starts."""
+    with pytest.raises(ValueError, match="does not divide"):
         cli.main(["--input", karate_edg, "--output", str(tmp_path / "o.emb"),
                   "--dimensions", "4", "--walk-length", "3", "--num-walks", "1",
                   "--p", "0.5", "--device", "cpu", *flags])
