@@ -101,10 +101,11 @@ Phases (any failure raises, and the script exits non-zero):
       each group's first sweep block (``SWEEP_TRIALS``); at most
       ``NO_CDF_MISMATCH_SHARE`` of the valid lanes differ in each;
    c. the second-order law of the per-step sampler on a small hub graph;
-   d. ``embed(dim=128, num_walks=1, walk_length=80, bf16,
-      max_steps=50)`` on a's graph and mode, then the same split by a
-      checkpoint at step 25 and resumed: byte-equal; the same with
-      ``streaming=True`` on phase 4's graph; snapshot bytes, save and
+   d. ``embed(dim=128, num_walks=1, bf16, max_steps=50)`` on a's graph
+      and mode at ``RESUME_STEP_WALK_LENGTH`` (a cut of depth), then the
+      same split by a checkpoint at step 25 and resumed: byte-equal; the
+      same with ``streaming=True`` and walk length 80 on phase 4's graph;
+      snapshot bytes, save and
       restore seconds;
    e. the CLI with ``--profile DIR`` on a 4,000-node power-law graph
       under ``AMORTIZED=0``: the Chrome trace parses and names kernel
@@ -139,8 +140,36 @@ Phases (any failure raises, and the script exits non-zero):
    f. a one-rank nccl world against a one-rank gloo world: byte-equal;
    g. the block-model gate through ``embed(n_devices=2)``: micro-F1 0.9;
    and prints the ``{"multichip": ...}`` line;
-11. prints the kernels JSON line (phase 10's launches added to kernel
-   2.1's and the trial kernels'), the ``nvidia-smi`` line, and last
+11. the default workload through the entry point users call, and the
+   reference's scalar callbacks:
+   a. ``cli.main`` in this process on phase 4's graph with ``--weighted
+      --p 0.5 --q 2 --random_state 0 --verbose`` and an ``.npz`` output,
+      every other flag at its default (10 walks of 80 steps a node, dim
+      128, window 10, one epoch, ``--streaming auto``, ``--table-dtype
+      auto``, ``--device cuda``): 810,000,000 tokens stream; the walk
+      engine runs each of the 77 chunks of 131,072 walkers once into the
+      walk cache, training replays it on bfloat16 tables (read from the
+      run), kernel 2.1 launches twice a chunk-step and no other kernel
+      launches; the file holds 1,000,000
+      IDs and a finite [1,000,000, 128] matrix, and the mean cosine of
+      ``COSINE_PAIRS`` sampled edges' endpoints lies above that of as many
+      uniform random pairs; prints the ``{"default_workload": ...}`` line
+      (stage and call seconds, tokens, chunk-steps, walk steps/s,
+      tokens/s, launches, the cache's bytes, peak device memory, the
+      ``nvidia-smi`` line);
+   b. ``get_move_forward`` on phase 6's graph (``SparseOTF(p=0.5, q=2)``,
+      cdf channel): ``MF_CALLS`` calls from hub curs and as many from
+      non-hub curs, prev a neighbour, every result a neighbour of cur, the
+      trial kernels launched (counted), ms a call; the same calls replayed
+      on the plain route (``use_trial_kernels`` off) give the same results
+      under ``NO_CDF_MISMATCH_SHARE`` and launch no trial kernel; its law
+      from a hub cur and from a hub prev on ``small_hub_graph`` within
+      ``LAW_SIGMAS``; on that graph with integer weights, ``MF_INT_CALLS``
+      calls of each pair equal on both routes, call for call;
+      ``get_has_nbrs`` and ``get_noise_thresholds`` equal to the host
+      layout's; prints the ``{"compat": ...}`` line;
+12. prints the kernels JSON line (phases 10 and 11's launches added to
+   kernel 2.1's and the trial kernels'), the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -163,6 +192,9 @@ DIM = 128
 WALK_LENGTH = 80
 WINDOW = 10
 MAX_STEPS = 50
+# 9d: walk length of the per-step sampler's resume runs (a cut of depth: its
+# three embed calls walk every node; at 80 steps they took 120 s of phase 9)
+RESUME_STEP_WALK_LENGTH = 20
 NEG_POOL = 32_768
 TIMING_REPS = 20
 BF16_MISMATCH_SHARE = 1e-4  # of touched elements; each at most 1 ulp off
@@ -1905,14 +1937,14 @@ def phase_resume(tmp):
     for name in timings:
         originals[name], wrapped = timed(name)
         setattr(targets[name], name, wrapped)
-    kw = dict(dim=DIM, num_walks=1, walk_length=WALK_LENGTH, window_size=WINDOW,
-              table_dtype="bfloat16")
     stats = {}
     try:
-        for label, graph, env, streaming in (
-            ("per-step sampler", "powerlaw_graph.csr.npz", "0", False),
-            ("streaming", "bench_graph.csr.npz", "1", True),
+        for label, graph, env, streaming, walk_length in (
+            ("per-step sampler", "powerlaw_graph.csr.npz", "0", False, RESUME_STEP_WALK_LENGTH),
+            ("streaming", "bench_graph.csr.npz", "1", True, WALK_LENGTH),
         ):
+            kw = dict(dim=DIM, num_walks=1, walk_length=walk_length, window_size=WINDOW,
+                      table_dtype="bfloat16")
             with env_set(PECANPY_TPU_AMORTIZED=env):
                 g = pecanpy.SparseOTF(p=0.5, q=2.0, random_state=0, device="cuda")
                 g.read_npz(os.path.join(tmp, graph), weighted=True, implicit_ids=True)
@@ -1925,7 +1957,8 @@ def phase_resume(tmp):
                 dt_full = time.perf_counter() - t0
                 launches = dict(zip(("trial_propose", "trial_accept"), trial_counts()),
                                 apply_sorted_stream=apply_lib.apply_sorted_stream.launches)
-                log(f"[9d resume] {label}: uninterrupted embed(max_steps={MAX_STEPS}) in "
+                log(f"[9d resume] {label}: uninterrupted embed(walk_length={walk_length}, "
+                    f"max_steps={MAX_STEPS}) in "
                     f"{dt_full:.2f} s; launches {launches}")
                 if launches["apply_sorted_stream"] != 2 * MAX_STEPS:
                     raise AssertionError(f"{label}: launches {launches}")
@@ -2368,6 +2401,315 @@ def phase_multichip(tmp):
     return summary, apply_launches, trial
 
 
+# phase 11: the CLI defaults (``pecanpy_tpu_torch/cli.py``): 10 walks of 80
+# steps a node, dim 128, window 10, one epoch, streaming and table dtype auto
+DEFAULT_NUM_WALKS = 10
+DEFAULT_WALKERS = 131_072  # walkers a walk chunk (``base.DEFAULT_WALKER_BATCH``)
+COSINE_PAIRS = 100_000  # 11a: sampled edges and uniform random pairs
+MF_CALLS = 1_000  # 11b: move_forward calls from hub curs, and from non-hub curs
+MF_LAW_CALLS = 2_000  # 11b: calls of each (cur, prev) pair of the law check
+MF_INT_CALLS = 250  # 11b: calls of each pair on the integer-weight graph, both routes
+
+
+@contextlib.contextmanager
+def patched(module, name, wrapper):
+    """Replace ``module.name`` by ``wrapper(original)`` for the enclosed work."""
+    original = getattr(module, name)
+    setattr(module, name, wrapper(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def phase_default_workload(tmp):
+    """11a: ``cli.main`` on phase 4's graph at the CLI's defaults: every walk
+    chunk runs once into the walk cache, training replays it through
+    kernel 2.1. Returns (kernel 2.1's launches, the record)."""
+    import torch
+
+    from pecanpy_tpu_torch import cli, pecanpy
+    from pecanpy_tpu_torch.models import engine, sgns
+    from pecanpy_tpu_torch.ops import apply as apply_lib
+
+    path = os.path.join(tmp, "bench_graph.csr.npz")
+    out = os.path.join(tmp, "default.emb.npz")
+    walk_cols = WALK_LENGTH + 1
+    planned = NODES * DEFAULT_NUM_WALKS * walk_cols
+    if planned <= pecanpy.SparseOTF.STREAMING_TOKEN_THRESHOLD:
+        raise AssertionError(f"{planned} tokens do not stream under --streaming auto")
+    config = sgns.SGNSConfig(dim=DIM, window=WINDOW, seed=0)
+    chunk = sgns.resolve_batch_walks(config, NODES, walk_cols)
+    cache_budget = int(os.environ.get("PECANPY_TPU_WALK_CACHE_MB", "4096")) << 20
+
+    # every walk chunk the engine runs, every walk buffer training takes,
+    # and the dtypes of the tables each buffer updates
+    chunk_ids, chunks, buffers, table_dtypes = [], [], [], set()
+
+    def count_uniforms(fn):
+        def wrapped(seed, chunk_idx, *a, **kw):
+            chunk_ids.append(int(chunk_idx))
+            return fn(seed, chunk_idx, *a, **kw)
+        return wrapped
+
+    def time_walks(fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            walks, eff = fn(*a, **kw)
+            tokens = int(eff.sum())
+            chunks.append(dict(walkers=int(walks.shape[0]), tokens=tokens,
+                               bytes=walks.numel() * walks.element_size()
+                               + eff.numel() * eff.element_size(),
+                               s=time.perf_counter() - t0))
+            return walks, eff
+        return wrapped
+
+    def time_buffers(fn):
+        def wrapped(step, w_in, w_out, *a, **kw):
+            table_dtypes.update((w_in.dtype, w_out.dtype))
+            t0 = time.perf_counter()
+            result = fn(step, w_in, w_out, *a, **kw)
+            torch.cuda.synchronize()
+            buffers.append(time.perf_counter() - t0)
+            return result
+        return wrapped
+
+    args = ["--input", path, "--output", out, "--weighted", "--p", "0.5", "--q", "2",
+            "--random_state", "0", "--verbose"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the counts of this run start here
+    t0 = time.perf_counter()
+    with patched(engine, "walk_uniforms", count_uniforms), \
+            patched(engine, "generate_walks", time_walks), \
+            patched(sgns, "_run_buffer", time_buffers):
+        _, text = run_captured(cli.main, args)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = {
+        "apply_sorted_stream": apply_lib.apply_sorted_stream.launches,
+        "apply_sorted_stream_windowed": apply_lib.apply_sorted_stream_windowed.launches,
+        "trial_propose": trial_counts()[0], "trial_accept": trial_counts()[1],
+    }
+    peak = torch.cuda.max_memory_allocated()
+
+    n_chunks = -(-NODES * DEFAULT_NUM_WALKS // DEFAULT_WALKERS)
+    walkers = [c["walkers"] for c in chunks]
+    if chunk_ids != list(range(n_chunks)) or sum(walkers) != NODES * DEFAULT_NUM_WALKS \
+            or any(w != DEFAULT_WALKERS for w in walkers[:-1]):
+        raise AssertionError(f"walk chunks run: ids {chunk_ids}, walkers {walkers}; want "
+                             f"each of {n_chunks} chunks of {DEFAULT_WALKERS} once")
+    cache_bytes = sum(c["bytes"] for c in chunks)
+    if cache_bytes > cache_budget:
+        raise AssertionError(f"walks of {cache_bytes} B exceed the cache's {cache_budget}")
+    steps = sum(-(-w // chunk) for w in walkers)
+    if launches != {"apply_sorted_stream": 2 * steps, "apply_sorted_stream_windowed": 0,
+                    "trial_propose": 0, "trial_accept": 0}:
+        raise AssertionError(f"launches {launches}, want 2 x {steps} of kernel 2.1 only")
+    if len(buffers) != n_chunks:
+        raise AssertionError(f"training took {len(buffers)} walk buffers, want {n_chunks}")
+    if table_dtypes != {torch.bfloat16}:
+        raise AssertionError(f"--table-dtype auto trained {table_dtypes} tables, want bfloat16")
+    stages = {name: timer_seconds(text, name) for name in (
+        "load Graph", "pre-compute transition probabilities",
+        "stream walks + train embeddings")}
+
+    raw = np.load(out)
+    ids, emb = raw["IDs"], raw["data"]
+    if ids.shape != (NODES,) or ids[0] != "0" or ids[-1] != str(NODES - 1):
+        raise AssertionError(f"IDs {ids.shape} {ids[:2]} ... {ids[-1:]}")
+    if emb.shape != (NODES, DIM) or emb.dtype != np.float32 or not np.isfinite(emb).all():
+        raise AssertionError(f"embeddings {emb.shape} {emb.dtype}, finite "
+                             f"{np.isfinite(emb).all()}")
+    graph = np.load(path)
+    indptr, indices = graph["indptr"], graph["indices"]
+    rng = np.random.default_rng(11)
+    e = rng.integers(0, indices.size, COSINE_PAIRS)
+    src = np.searchsorted(indptr, e, side="right") - 1
+    unit = torch.nn.functional.normalize(torch.from_numpy(emb).cuda(), dim=1)
+
+    def mean_cosine(a, b):
+        a, b = (torch.from_numpy(np.asarray(x, dtype=np.int64)).cuda() for x in (a, b))
+        return float((unit[a] * unit[b]).sum(dim=1).mean())
+
+    edge_cos = mean_cosine(src, indices[e])
+    random_cos = mean_cosine(*rng.integers(0, NODES, (2, COSINE_PAIRS)))
+    del unit, emb, raw
+    torch.cuda.empty_cache()
+    if not edge_cos > random_cos:
+        raise AssertionError(f"edge cosine {edge_cos:.4f} not above random {random_cos:.4f}")
+
+    tokens = sum(c["tokens"] for c in chunks)
+    walk_s = sum(c["s"] for c in chunks)
+    train_s = sum(buffers)
+    record = dict(
+        argv=args[4:], nodes=NODES, edges=int(indices.size), tokens=tokens,
+        tokens_planned=planned, walk_chunks=n_chunks, walkers_per_chunk=DEFAULT_WALKERS,
+        walks_per_chunk_step=chunk, chunk_steps=steps, stage_s=stages, call_s=call_s,
+        walk_s=walk_s, walk_steps_per_s=(tokens - NODES * DEFAULT_NUM_WALKS) / walk_s,
+        train_loop_s=train_s, tokens_per_s=tokens / train_s,
+        chunk_step_ms=1e3 * train_s / steps, kernel_2_1_launches=launches["apply_sorted_stream"],
+        walk_cache_bytes=cache_bytes, table_dtype="bfloat16", peak_device_bytes=peak, edge_cosine=edge_cos,
+        random_pair_cosine=random_cos, nvidia_smi=nvidia_smi_line())
+    log(f"[11a default] cli.main {' '.join(args[4:])} on {NODES} nodes: {call_s:.1f} s "
+        f"(load {stages['load Graph']:.1f} s, layout "
+        f"{stages['pre-compute transition probabilities']:.1f} s, stream walks + train "
+        f"{stages['stream walks + train embeddings']:.1f} s); {n_chunks} walk chunks once "
+        f"({walk_s:.1f} s, {record['walk_steps_per_s']:.4e} walk steps/s) into a "
+        f"{cache_bytes / 1e9:.3f} GB cache; {tokens} tokens in {steps} chunk-steps of "
+        f"{chunk} walks ({train_s:.1f} s, {tokens / train_s:.4e} tokens/s, "
+        f"{record['chunk_step_ms']:.3f} ms each) on bfloat16 tables, kernel 2.1 launched "
+        f"{2 * steps} times, no other kernel; peak device memory {peak / 1e9:.2f} GB")
+    log(f"[11a default] output {out}: {NODES} IDs, finite [{NODES}, {DIM}] f32; mean cosine "
+        f"of {COSINE_PAIRS} sampled edges {edge_cos:.4f} against {random_cos:.4f} for "
+        "uniform random pairs")
+    return launches["apply_sorted_stream"], record
+
+
+def phase_compat(tmp):
+    """11b: the reference's scalar callbacks on phase 6's hub graph (cdf
+    channel): ``move_forward`` from hub and non-hub curs through the trial
+    kernels at one lane, its law on ``small_hub_graph``, ``get_has_nbrs``
+    and ``get_noise_thresholds``. Returns (trial launches, the record)."""
+    import torch
+
+    from pecanpy_tpu_torch import pecanpy
+    from pecanpy_tpu_torch.ops import layout
+
+    p, q = 0.5, 2.0
+    path = os.path.join(tmp, "powerlaw_graph.csr.npz")
+    raw = np.load(path)
+    indptr, indices, data = raw["indptr"], raw["indices"], raw["data"]
+    deg = np.diff(indptr)
+    g = pecanpy.SparseOTF(p=p, q=q, random_state=0, device="cuda")
+    g.read_npz(path, weighted=True, implicit_ids=True)
+    reset_counts()  # the counts of this run start here
+    t0 = time.perf_counter()
+    move_forward = g.get_move_forward()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    dg = g.get_device_graph()
+    if not dg.has_hubs or "cdf" not in dg.channels:
+        raise AssertionError(f"hub layout with the cdf channel expected: {dg.channels}")
+    rng = np.random.default_rng(12)
+    record = {"setup_s": setup_s}
+    calls = []  # (kind, cur, prev, result) of every call, in call order
+    for kind, pool in (("hub", np.nonzero(deg > g.degree_cap)[0]),
+                       ("non_hub", np.nonzero((deg > 0) & (deg <= g.degree_cap))[0])):
+        cur = rng.choice(pool, MF_CALLS)
+        prev = indices[indptr[cur] + (rng.random(MF_CALLS) * deg[cur]).astype(np.int64)]
+        before = trial_counts()[0]
+        t0 = time.perf_counter()
+        got = np.array([move_forward(int(c), int(pv)) for c, pv in zip(cur, prev)])
+        dt = time.perf_counter() - t0
+        launched = trial_counts()[0] - before
+        calls += [(kind, int(c), int(pv), int(x)) for c, pv, x in zip(cur, prev, got)]
+        bad = [(int(c), int(x)) for c, x in zip(cur, got)
+               if x not in indices[indptr[c]:indptr[c + 1]]]
+        if bad:
+            raise AssertionError(f"{kind}: move_forward left cur's neighbors: {bad[:5]}")
+        if kind == "hub" and not launched:
+            raise AssertionError("move_forward from hub curs launched no trial kernel")
+        record[kind] = dict(calls=MF_CALLS, ms_per_call=1e3 * dt / MF_CALLS,
+                            trial_propose_launches=launched)
+        log(f"[11b compat] move_forward from {MF_CALLS} {kind} curs, prev a neighbor: every "
+            f"result a neighbor of cur; {1e3 * dt / MF_CALLS:.3f} ms a call; trial_propose "
+            f"launched {launched} times")
+    launches = dict(zip(("trial_propose", "trial_accept"), trial_counts()))
+    record["plain_route"] = move_forward_vs_plain(g, calls, "power-law graph")
+
+    has_nbrs = g.get_has_nbrs()
+    if [has_nbrs(i) for i in range(NODES)] != (deg > 0).tolist():
+        raise AssertionError("get_has_nbrs differs from the CSR's degrees")
+    thr = g.get_noise_thresholds()
+    want = layout._segment_stats(indptr, data, g.gamma)
+    if thr.shape != (NODES,) or not np.array_equal(thr, want):
+        raise AssertionError("get_noise_thresholds differs from the host layout's")
+    log(f"[11b compat] get_has_nbrs equals deg > 0 on all {NODES} nodes "
+        f"({int((deg == 0).sum())} without an edge); get_noise_thresholds equals the host "
+        "layout's thresholds")
+    del g, dg, move_forward
+    torch.cuda.empty_cache()
+
+    adj = small_hub_graph(np.random.default_rng(7))
+    gl = pecanpy.SparseOTF.from_mat(adj, [str(i) for i in range(adj.shape[0])], p=p, q=q,
+                                    degree_cap=6, random_state=5, device="cuda")
+    dgl = gl.get_device_graph()
+    if not dgl.has_hubs or "cdf" not in dgl.channels:
+        raise AssertionError("law graph: hubs and the cdf channel expected")
+    move_forward = gl.get_move_forward()
+    non_hub = next(int(c) for c in np.nonzero(adj[1])[0] if (adj[c] != 0).sum() <= 6)
+    record["law"] = []
+    for cur, prev in ((0, int(np.nonzero(adj[0])[0][0])), (non_hub, 1)):
+        got = np.array([move_forward(cur, prev) for _ in range(MF_LAW_CALLS)])
+        nbrs = np.nonzero(adj[cur])[0]
+        freq = (got[:, None] == nbrs[None, :]).mean(0)
+        worst = float(np.abs(freq - node2vec_probs(adj, cur, prev, p, q)).max()
+                      / np.sqrt(0.25 / MF_LAW_CALLS))
+        if not np.isin(got, nbrs).all() or worst > LAW_SIGMAS:
+            raise AssertionError(f"move_forward law from ({cur}, prev {prev}): worst "
+                                 f"{worst:.2f} sigma")
+        record["law"].append(dict(cur=cur, prev=prev, calls=MF_LAW_CALLS, worst_sigma=worst))
+        log(f"[11b law] move_forward({cur}, {prev}) on the small hub graph (degree_cap 6), "
+            f"{MF_LAW_CALLS} calls: worst frequency {worst:.2f} binomial sigma (limit "
+            f"{LAW_SIGMAS})")
+    law_launches = trial_counts()[0] - launches["trial_propose"]
+    if not law_launches:
+        raise AssertionError("the law's move_forward calls launched no trial kernel")
+    launches = dict(zip(("trial_propose", "trial_accept"), trial_counts()))
+    record["launches"] = launches
+
+    # integer weights: every prefix sum is exact in any order, so the one-lane
+    # kernel route must equal the plain route call for call
+    adj_int = np.ceil(adj)
+    gi = pecanpy.SparseOTF.from_mat(adj_int, [str(i) for i in range(adj.shape[0])], p=p,
+                                    q=q, degree_cap=6, random_state=5, device="cuda")
+    move_forward = gi.get_move_forward()
+    calls = []
+    for cur, prev in ((0, int(np.nonzero(adj[0])[0][0])), (non_hub, 1)):
+        calls += [("integer", cur, prev, move_forward(cur, prev))
+                  for _ in range(MF_INT_CALLS)]
+    record["plain_route_integer"] = move_forward_vs_plain(gi, calls, "integer-weight graph",
+                                                          strict=True)
+    return launches, record
+
+
+def move_forward_vs_plain(g, calls, graph, strict=False):
+    """Replay ``calls`` ((kind, cur, prev, result), in the order they were
+    made on a fresh ``g.get_move_forward()``) through a second fresh callback
+    with ``rejection.use_trial_kernels`` off: call n draws the same numbers,
+    so each result must match the kernel route's, under
+    ``NO_CDF_MISMATCH_SHARE`` (the sampler's blocks take no cdf channel, and
+    the kernel's warp prefix sum adds in another order than
+    ``torch.cumsum``) or exactly with ``strict``. The plain replay must
+    launch no trial kernel."""
+    from pecanpy_tpu_torch.ops import rejection
+
+    move_forward = g.get_move_forward()
+    before = trial_counts()
+    t0 = time.perf_counter()
+    with patched(rejection, "use_trial_kernels", lambda _: lambda extend, dg: False):
+        plain = [move_forward(cur, prev) for _, cur, prev, _ in calls]
+    plain_ms = 1e3 * (time.perf_counter() - t0) / len(calls)
+    if trial_counts() != before:
+        raise AssertionError(f"{graph}: the plain route launched a trial kernel")
+    differ = [(kind, cur, prev, x, y)
+              for (kind, cur, prev, x), y in zip(calls, plain) if x != y]
+    for kind, cur, prev, x, y in differ[:5]:
+        log(f"[11b plain] {graph} {kind} move_forward({cur}, {prev}): kernel {x}, plain {y}")
+    allowed = 0 if strict else NO_CDF_MISMATCH_SHARE * len(calls)
+    if len(differ) > allowed:
+        raise AssertionError(f"{graph}: {len(differ)} of {len(calls)} move_forward calls "
+                             f"differ from the plain route (allowed {allowed:g})")
+    rule = "exactly" if strict else (f"allowed {NO_CDF_MISMATCH_SHARE:g} of them: prefix-sum "
+                                     "order, no cdf channel in the sampler's blocks")
+    log(f"[11b plain] {graph}: {len(differ)} of {len(calls)} move_forward calls differ from "
+        f"the plain route (use_trial_kernels off) on the same draws ({rule}); the plain "
+        f"replay launched no trial kernel, {plain_ms:.3f} ms a call")
+    return dict(calls=len(calls), differ=len(differ), strict=strict, plain_ms_per_call=plain_ms)
+
+
 def main():
     import torch
 
@@ -2403,17 +2745,22 @@ def main():
         phase_profile_cli(tmp)
         log(f"[9] phase 9 took {time.perf_counter() - t9:.1f} s")
         multichip, mc_apply, mc_trial = phase_multichip(tmp)
+        t11 = time.perf_counter()
+        default_apply, default = phase_default_workload(tmp)
+        compat_trial, compat = phase_compat(tmp)
+        log(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     r_out = 1235 * (WALK_LENGTH + 1) + NEG_POOL
     rows = [
-        ("apply_sorted_stream", "apply.cu", "apply.py:169", launches + mc_apply,
+        ("apply_sorted_stream", "apply.cu", "apply.py:169", launches + mc_apply + default_apply,
          dict(results[("bfloat16", r_out)], max_abs_err=max_err)),
         ("trial_propose", "trial.cu", "trialkernel.py:84",
-         hub_launches["trial_propose"] + mc_trial["trial_propose"],
+         hub_launches["trial_propose"] + mc_trial["trial_propose"]
+         + compat_trial["trial_propose"],
          dict(hub_results["trial_propose"], library_ms=None)),
         ("trial_accept", "trial.cu", "trialkernel.py:166",
-         hub_launches["trial_accept"] + mc_trial["trial_accept"],
+         hub_launches["trial_accept"] + mc_trial["trial_accept"] + compat_trial["trial_accept"],
          dict(hub_results["trial_accept"], library_ms=None)),
         ("apply_sorted_stream_windowed", "apply_v2.cu", "apply.py:296", win_launches,
          dict(win_results[("bfloat16", f"R={r_out}")], max_abs_err=win_err)),
@@ -2442,8 +2789,11 @@ def main():
         "9d_step_sampler_embed": {k: resume["launches"][k]
                                   for k in ("trial_propose", "trial_accept")},
         "10b_replicated_hub_walks": mc_trial,
+        "11b_move_forward": compat_trial,
     }}), flush=True)
     print(json.dumps({"multichip": multichip}), flush=True)
+    print(json.dumps({"default_workload": default}), flush=True)
+    print(json.dumps({"compat": compat}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,21 @@ per line). Every walk mode runs, and the experimental
 and trains on the host over ``--workers`` threads (the native gensim
 loop). ``--checkpoint-dir`` snapshots training and resumes from the latest
 snapshot; ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of
-the pipeline into DIR. ``--devices`` above 1 raises
-``NotImplementedError`` naming ROADMAP.md.
+the pipeline into DIR. ``--devices N`` above 1 walks and trains on N
+ranks, one process each (``parallel/``): the walkers split over the data
+ranks, the tables along the dimension over ``--model-parallel`` ranks,
+and the graph replicated on every rank or row-sharded over the data ranks
+(``--partition``); ranks that share a card need
+``PECANPY_TPU_DIST_BACKEND=gloo``.
 
-Example::
+The embedding task runs as the JAX CLI's timed stages: ``load Graph``,
+``pre-compute transition probabilities``, then ``generate walks``
+(``simulate_walks``) and ``train embeddings`` (``learn_embeddings``, which
+also writes the output). Streaming runs (``--streaming``, or above ~1e8
+tokens), ``--trainer sequential`` and ``--devices`` above 1 walk and
+train inside one ``embed`` call, which prints its own stage lines.
+
+Example (installed as the ``pecanpy-tpu-torch`` console script)::
 
     python -m pecanpy_tpu_torch.cli --input demo/karate.edg \\
         --output karate.emb --mode SparseOTF --device cuda
@@ -351,6 +362,28 @@ def preprocess(g):
     g.preprocess_transition_probs()
 
 
+@Timer("generate walks")
+def simulate_walks(args, g):
+    """Walk generation stage (timed); keeps the walks on the device."""
+    return g.simulate_walks_device(args.num_walks, args.walk_length)
+
+
+@Timer("train embeddings")
+def learn_embeddings(args, g, walks, eff_len):
+    """SGNS training stage (timed) and output writing; the trainer config
+    and its advisories are ``embed``'s (``Base._sgns_config``)."""
+    total_tokens = g.num_nodes * args.num_walks * (args.walk_length + 1)
+    config = g._sgns_config(
+        args.dimensions, args.window_size, args.epochs, args.table_dtype, None,
+        total_tokens,
+    )
+    embeddings = g._train_device(
+        walks, eff_len, config, args.verbose, args.checkpoint_dir,
+        args.checkpoint_every, args.max_steps,
+    )
+    save_embeddings(args.output, g.nodes, embeddings)
+
+
 def export_walks(args, g):
     """Write the walks as node-ID lines, cut at their effective lengths,
     one device chunk at a time: the corpus is never held as host lists."""
@@ -411,7 +444,7 @@ def _run(args):
                 "--trainer sequential runs on the host; it cannot be "
                 "combined with --devices"
             )
-        embeddings = Timer("walks + train embeddings", args.verbose)(g.embed)(
+        embeddings = g.embed(
             dim=args.dimensions,
             num_walks=args.num_walks,
             walk_length=args.walk_length,
@@ -428,7 +461,11 @@ def _run(args):
         args.streaming == "auto"
         and total_tokens > type(g).STREAMING_TOKEN_THRESHOLD
     )
-    embeddings = Timer("walks + train embeddings", args.verbose)(g.embed)(
+    if not streaming and (args.devices is None or args.devices <= 1):
+        walks, eff_len = simulate_walks(args, g)
+        learn_embeddings(args, g, walks, eff_len)
+        return
+    embeddings = g.embed(
         dim=args.dimensions,
         num_walks=args.num_walks,
         walk_length=args.walk_length,

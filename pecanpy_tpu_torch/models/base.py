@@ -2,8 +2,10 @@
 
 Counterpart of ``pecanpy_tpu/models/base.py``: the constructor parameters
 ``p, q, workers, verbose, extend, gamma, random_state``, the
-``simulate_walks`` / ``embed`` entry points and the one-shot
-``preprocess_transition_probs`` hook, plus an explicit ``device``. Walks
+``simulate_walks`` / ``embed`` entry points, the one-shot
+``preprocess_transition_probs`` hook and the reference's scalar callbacks
+(``get_noise_thresholds``, ``get_has_nbrs``, ``get_move_forward``), plus
+an explicit ``device``. Walks
 run batched on the device (``models/engine.py``); embeddings train with
 the batched SGNS trainer (``models/sgns.py``) on this mode's device, or
 with ``trainer="sequential"`` on the host with the native gensim loop.
@@ -14,6 +16,7 @@ the torch generators of every walk chunk and training step. The port and
 the JAX package agree in distribution, not sample for sample.
 """
 import dataclasses
+import itertools
 import time
 import warnings
 from typing import Callable, List, Optional, Tuple
@@ -25,7 +28,7 @@ from pecanpy_tpu_torch.graph import BaseGraph
 from pecanpy_tpu_torch.models import engine
 from pecanpy_tpu_torch.ops import layout
 from pecanpy_tpu_torch.ops.layout import DEFAULT_DEGREE_CAP, DeviceCSR
-from pecanpy_tpu_torch.typing import Embeddings
+from pecanpy_tpu_torch.typing import Embeddings, HasNbrs, MoveForward
 from pecanpy_tpu_torch.wrappers import Timer
 
 DEFAULT_WALKER_BATCH = 131072
@@ -189,6 +192,68 @@ class Base(BaseGraph):
             self.preprocess_transition_probs()
             self._preprocessed = True
 
+    # -- reference scalar-callback compat ------------------------------------
+
+    def get_noise_thresholds(self) -> np.ndarray:
+        """Per-node node2vec+ noise thresholds (``sparse_rw.py:22-35``)."""
+        return self.get_device_graph().threshold[:-1].cpu().numpy()
+
+    def get_has_nbrs(self) -> HasNbrs:
+        """Scalar has-neighbors callback (reference: ``sparse_rw.py:12-20``).
+
+        Provided for API parity; the batch engines check degrees inline.
+        """
+        deg = self.get_device_graph().deg.cpu().numpy()
+
+        def has_nbrs(idx: int) -> bool:
+            return bool(deg[idx] > 0)
+
+        return has_nbrs
+
+    def get_move_forward(self) -> MoveForward:
+        """Scalar single-step callback (reference: ``pecanpy.py:384-440``).
+
+        ``move_forward(cur_idx, prev_idx=None)`` runs this mode's step
+        functions on one walker on ``self.device``: the first-order step
+        without a prev, the second-order step with one. Useful for
+        debugging and API parity, hopeless for throughput (use
+        ``simulate_walks_device``). Call n draws from a generator seeded
+        from (seed, n) on a stream of its own
+        (``engine.MOVE_FORWARD_STREAM``), so two instances with one
+        ``random_state`` give one sequence. On a hub graph the OTF modes'
+        steps take the per-step sampler's draws from that generator too,
+        and their trial blocks take the route every walker takes
+        (``rejection.use_trial_kernels``).
+        """
+        self._preprocess_transition_probs()
+        dg = self.get_device_graph()
+        first_fn, step_fn = self.make_step_fns()
+        width = self._draw_width()
+        sampler = self._uses_step_sampler()
+        seed = self._seed()
+        calls = itertools.count()
+
+        def node(idx: int) -> torch.Tensor:
+            return torch.tensor([idx], dtype=torch.int32, device=self.device)
+
+        def move_forward(cur_idx: int, prev_idx: Optional[int] = None) -> int:
+            draws = engine.SamplerDrawStream(
+                seed, (engine.MOVE_FORWARD_STREAM, next(calls)), self.device,
+                engine.MOVE_FORWARD_STREAM,
+            )
+            u = torch.rand((1, width), generator=draws.gen, device=self.device)
+            extra = (draws,) if sampler else ()
+            cur = node(cur_idx)
+            cur_rows = dg.gather_rows(cur)
+            if prev_idx is None:
+                nxt = first_fn(dg, u, cur, cur_rows, *extra)
+            else:
+                prev = node(prev_idx)
+                nxt = step_fn(dg, u, cur, prev, cur_rows, dg.gather_rows(prev), *extra)
+            return int(nxt[0])
+
+        return move_forward
+
     # -- walk driver ---------------------------------------------------------
 
     def _resolved_walker_batch(self) -> int:
@@ -203,10 +268,18 @@ class Base(BaseGraph):
         override it: their queued engine amortizes stragglers per chunk)."""
         return 1
 
+    def _uses_step_sampler(self) -> bool:
+        """Do this mode's step functions take the per-step rejection
+        sampler's draws on this graph (the OTF modes on a hub graph)?"""
+        return False
+
     def _sampler_draws(self, chunk_idx: int) -> Optional[engine.StepDrawFn]:
         """The per-step rejection sampler's draws of one walk chunk, or
         None for modes and graphs that do not use it."""
-        return None
+        if not self._uses_step_sampler():
+            return None
+        stream = engine.SamplerDrawStream(self._seed(), chunk_idx, self.device)
+        return lambda step: stream
 
     def _make_walk_runner(self, walk_length: int):
         """The (dg, start, chunk index) -> (walks, eff) walk callable.
@@ -409,34 +482,11 @@ class Base(BaseGraph):
                     "trainer='sequential' (the host gensim loop) has no "
                     "checkpoint/resume support; use the batched trainer"
                 )
-        config = sgns.SGNSConfig(
-            dim=dim,
-            window=window_size,
-            epochs=epochs,
-            seed=self.random_state,
-            table_dtype=table_dtype,
-            batch_walks=batch_walks,
-        )
         total_tokens = self.num_nodes * num_walks * (walk_length + 1)
-        if sequential and total_tokens > 5e7:
-            warnings.warn(
-                f"trainer='sequential' trains ~{total_tokens:.1e} tokens on "
-                "host CPU threads: expect minutes to hours; the batched "
-                "trainer is about two orders of magnitude faster at this "
-                "scale",
-                stacklevel=2,
-            )
-        if not sequential and epochs == 1 and total_tokens <= 5e7:
-            # advisory only, as in the JAX package: there the batched
-            # trainer's per-epoch quality trailed the sequential reference
-            # at small corpus scale and epochs=2 closed the gap
-            warnings.warn(
-                f"epochs=1 on a small corpus (~{total_tokens:.1e} tokens) "
-                "leaves quality on the table: with the JAX reference "
-                "trainer, epochs=2 matches the sequential reference "
-                "(micro-F1 0.542 vs 0.541 at BlogCatalog scale)",
-                stacklevel=2,
-            )
+        config = self._sgns_config(
+            dim, window_size, epochs, table_dtype, batch_walks, total_tokens,
+            sequential,
+        )
 
         if n_devices is not None and n_devices > 1:
             return self._embed_multichip(
@@ -471,8 +521,58 @@ class Base(BaseGraph):
                 walks, eff_len, self.num_nodes, config,
                 workers=self.workers, verbose=verbose,
             )
-        timed_train = Timer("train embeddings", verbose)(sgns.train)
+        timed_train = Timer("train embeddings", verbose)(self._train_device)
         return timed_train(
+            walks, eff_len, config, verbose, checkpoint_dir, checkpoint_every,
+            max_steps,
+        )
+
+    def _sgns_config(
+        self, dim, window_size, epochs, table_dtype, batch_walks, total_tokens,
+        sequential=False,
+    ):
+        """The trainer config of an embedding run over ``total_tokens``,
+        with the advisories on its size: ``embed`` and the CLI's
+        ``learn_embeddings`` both decide them here."""
+        from pecanpy_tpu_torch.models import sgns
+
+        if sequential and total_tokens > 5e7:
+            warnings.warn(
+                f"trainer='sequential' trains ~{total_tokens:.1e} tokens on "
+                "host CPU threads: expect minutes to hours; the batched "
+                "trainer is about two orders of magnitude faster at this "
+                "scale",
+                stacklevel=3,
+            )
+        if not sequential and epochs == 1 and total_tokens <= 5e7:
+            # advisory only, as in the JAX package: there the batched
+            # trainer's per-epoch quality trailed the sequential reference
+            # at small corpus scale and epochs=2 closed the gap
+            warnings.warn(
+                f"epochs=1 on a small corpus (~{total_tokens:.1e} tokens) "
+                "leaves quality on the table: with the JAX reference "
+                "trainer, epochs=2 matches the sequential reference "
+                "(micro-F1 0.542 vs 0.541 at BlogCatalog scale)",
+                stacklevel=3,
+            )
+        return sgns.SGNSConfig(
+            dim=dim,
+            window=window_size,
+            epochs=epochs,
+            seed=self.random_state,
+            table_dtype=table_dtype,
+            batch_walks=batch_walks,
+        )
+
+    def _train_device(
+        self, walks, eff_len, config, verbose, checkpoint_dir, checkpoint_every,
+        max_steps,
+    ) -> Embeddings:
+        """The batched trainer over walks held on the device: ``embed``'s
+        non-streaming path and the CLI's ``learn_embeddings``."""
+        from pecanpy_tpu_torch.models import sgns
+
+        return sgns.train(
             walks, eff_len, self.num_nodes, config,
             max_steps=max_steps, verbose=verbose,
             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,

@@ -64,6 +64,12 @@ StepDrawFn = Callable[[int], PhaseDrawFn]
 FIRST = -1
 # the per-step sampler's draws of a chunk: a stream beside walk_uniforms'
 SAMPLER_STREAM = 1
+# the draws of call n of ``Base.get_move_forward``'s callback come from
+# SeedSequence([seed, MOVE_FORWARD_STREAM, n, MOVE_FORWARD_STREAM]): its
+# second and last words set it apart from the walk chunks' [seed, i], the
+# sampler's [seed, i, 1], the SGNS steps' [seed, 1, g(, d)] and the
+# multi-rank walks' [seed, 2, i, d] (SeedSequence pads short entropy with 0)
+MOVE_FORWARD_STREAM = 3
 
 
 def _chunk_generator(seed: int, chunk_idx, device, stream: int = 0) -> torch.Generator:
@@ -116,11 +122,11 @@ class TrialDrawStream:
 class SamplerDrawStream:
     """The per-step sampler's draws for one walk chunk: a ``PhaseDrawFn``
     backed by one ``torch.Generator`` seeded from (seed, chunk index,
-    ``SAMPLER_STREAM``), a stream beside ``walk_uniforms``'. Each call
-    names its trial count."""
+    ``stream``), by default ``SAMPLER_STREAM``, a stream beside
+    ``walk_uniforms``'. Each call names its trial count."""
 
-    def __init__(self, seed: int, chunk_idx: int, device):
-        self.gen = _chunk_generator(seed, chunk_idx, device, SAMPLER_STREAM)
+    def __init__(self, seed: int, chunk_idx, device, stream: int = SAMPLER_STREAM):
+        self.gen = _chunk_generator(seed, chunk_idx, device, stream)
 
     def __call__(self, phase: int, deg: torch.Tensor, trials: int) -> RoundDraws:
         return _round_draws(self.gen, trials, deg)

@@ -210,11 +210,8 @@ class _AmortizedOTFMixin:
             return 1
         return max(int(os.environ.get("PECANPY_TPU_QUEUE_FACTOR", "8")), 1)
 
-    def _sampler_draws(self, chunk_idx: int):
-        if not self.get_device_graph().has_hubs:
-            return None
-        stream = engine.SamplerDrawStream(self._seed(), chunk_idx, self.device)
-        return lambda step: stream
+    def _uses_step_sampler(self) -> bool:
+        return self.get_device_graph().has_hubs
 
     def _make_walk_runner(self, walk_length: int):
         if not self.get_device_graph().has_hubs or not _amortized():

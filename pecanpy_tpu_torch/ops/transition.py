@@ -200,3 +200,44 @@ def node2vec_pp_weights_rows(
     w = w * torch.where(is_out, alpha, 1.0)
     w = w * torch.where(is_prev, 1.0 / p, 1.0)
     return w
+
+
+# -- index-taking wrappers (tests / scalar-compat paths; not walk-hot) -------
+# (``pecanpy_tpu/ops/transition.py:264-304``)
+
+
+def first_order_weights(graph: DeviceCSR, cur: torch.Tensor) -> torch.Tensor:
+    """Gather-then-compute wrapper around ``first_order_weights_rows``."""
+    return first_order_weights_rows(graph, graph.gather_rows(cur))
+
+
+def node2vec_weights(
+    graph: DeviceCSR, cur: torch.Tensor, prev: torch.Tensor, p: float, q: float
+) -> torch.Tensor:
+    """Gather-then-compute wrapper around ``node2vec_weights_rows``."""
+    return node2vec_weights_rows(
+        graph, graph.gather_rows(cur), graph.gather_rows(prev), prev, p, q
+    )
+
+
+def node2vec_plus_weights(
+    graph: DeviceCSR,
+    cur: torch.Tensor,
+    prev: torch.Tensor,
+    p: float,
+    q: float,
+    gamma: Optional[float] = None,
+) -> torch.Tensor:
+    """Gather-then-compute wrapper around ``node2vec_plus_weights_rows``."""
+    return node2vec_plus_weights_rows(
+        graph, graph.gather_rows(cur), graph.gather_rows(prev), prev, p, q, gamma
+    )
+
+
+def node2vec_pp_weights(
+    graph: DeviceCSR, cur: torch.Tensor, prev: torch.Tensor, p: float, q: float
+) -> torch.Tensor:
+    """Gather-then-compute wrapper around ``node2vec_pp_weights_rows``."""
+    return node2vec_pp_weights_rows(
+        graph, graph.gather_rows(cur), graph.gather_rows(prev), prev, p, q
+    )

@@ -25,6 +25,12 @@ _SNAPSHOT = re.compile(r"step_(\d+)\.pt")
 _TMP_PREFIX = ".tmp-"
 
 
+def checkpointing_available() -> bool:
+    """Can this install checkpoint? Always: snapshots are ``torch.save``
+    files (the JAX package's answer depends on orbax being installed)."""
+    return True
+
+
 def verify_rng_scheme(meta: Dict[str, Any], expected: str) -> None:
     """Refuse to resume across an RNG-stream derivation change.
 

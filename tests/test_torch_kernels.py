@@ -873,6 +873,38 @@ def test_step_sampler_kernel_route_matches_plain(cuda, p, q):
     assert (adj[c, x] != 0).all()
 
 
+def test_move_forward_kernel_route_matches_plain(cuda, monkeypatch):
+    """``get_move_forward`` on a hub graph with the cdf channel, one lane a
+    call: its trial blocks on the kernels equal the plain route
+    (``use_trial_kernels`` off) on the same seed over 200 calls, integer
+    weights; the kernels launch only on the kernel route."""
+    from pecanpy_tpu_torch import pecanpy
+    from pecanpy_tpu_torch.ops import rejection, trialkernel
+
+    adj, cap = _hub_graph(31)
+    cu, pr = np.nonzero(adj.T)  # every edge prev -> cur
+    pick = np.random.default_rng(31).choice(cu.size, 200)
+    hub = (adj != 0).sum(1) > cap
+    assert hub[cu[pick]].any() and hub[pr[pick]].any()
+
+    def run():
+        g = pecanpy.SparseOTF.from_mat(adj, [str(i) for i in range(adj.shape[0])], p=0.5,
+                                       q=2.0, degree_cap=cap, random_state=8, device=cuda)
+        dg = g.get_device_graph()
+        assert dg.has_hubs and "cdf" in dg.channels
+        move_forward = g.get_move_forward()
+        before = trialkernel.trial_propose.launches
+        out = [move_forward(int(c), int(p)) for c, p in zip(cu[pick], pr[pick])]
+        return out, trialkernel.trial_propose.launches - before
+
+    got, launched = run()
+    monkeypatch.setattr(rejection, "use_trial_kernels", lambda extend, dg: False)
+    want, launched_plain = run()
+    assert launched > 0 and launched_plain == 0
+    assert got == want
+    assert (adj[cu[pick], got] != 0).all()
+
+
 def test_resume_byte_equal_on_the_card(cuda, tmp_path):
     """``embed`` split by ``max_steps`` and resumed from its checkpoint
     ends byte-equal to an uninterrupted run, bf16 tables on the card."""

@@ -43,6 +43,14 @@ def test_port_never_imports_jax():
         "pecanpy_tpu_torch.parallel.mesh, pecanpy_tpu_torch.parallel.multihost, "
         "pecanpy_tpu_torch.parallel.distgraph, pecanpy_tpu_torch.parallel.train, "
         "pecanpy_tpu_torch.parallel.launch; "
+        "from pecanpy_tpu_torch.typing import HasNbrs, MoveForward, AdjNonZeroMat; "
+        "from pecanpy_tpu_torch.ops.sampling import alias_build, alias_draw; "
+        "from pecanpy_tpu_torch.ops.transition import first_order_weights, "
+        "node2vec_weights, node2vec_plus_weights, node2vec_pp_weights; "
+        "from pecanpy_tpu_torch.utils.checkpoint import checkpointing_available; "
+        "from pecanpy_tpu_torch.cli import simulate_walks, learn_embeddings; "
+        "from pecanpy_tpu_torch.models.base import Base; "
+        "Base.get_noise_thresholds, Base.get_has_nbrs, Base.get_move_forward; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert not any(m == 'pecanpy_tpu' or m.startswith('pecanpy_tpu.') "
         "for m in sys.modules), 'pecanpy_tpu imported'"
