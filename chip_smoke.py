@@ -1718,6 +1718,7 @@ def phase_step_sampler(tmp, queued_steps_s):
     from pecanpy_tpu_torch import pecanpy
     from pecanpy_tpu_torch.models import engine
     from pecanpy_tpu_torch.ops import rejection, trialkernel
+    from pecanpy_tpu_torch.utils import trace
 
     path = os.path.join(tmp, "powerlaw_graph.csr.npz")
     raw = np.load(path)
@@ -1748,8 +1749,9 @@ def phase_step_sampler(tmp, queued_steps_s):
 
         def counted(*args, **kwargs):
             """The sampler, recording its sweeps and one mid-walk step's inputs."""
-            nxt = sample(*args, **kwargs)
-            sweeps.append(rejection.last_sweeps)
+            with trace.job("pecanpy.smoke.sample"):
+                nxt = sample(*args, **kwargs)
+            sweeps.append(trace.last_job("pecanpy.smoke.sample").counter("walk.sweeps"))
             if len(sweeps) == WALK_LENGTH // 2:
                 calls.append(args)
             return nxt
@@ -2070,13 +2072,16 @@ def mc_step_profile(trainer, steps=MC_PROFILE_STEPS, seed=0, prof_out=None):
     at 1M nodes gensim's keep probability is 1 for every node), after one
     warm-up step: host ms a step, device-busy ms a step, idle share,
     the host time inside the collective wrappers and the device time of
-    the copies between the card and the host (gloo's, of CUDA tensors)."""
+    the copies between the card and the host (gloo's, of CUDA tensors).
+    The wrappers' host time is the totals of the port's always-on
+    ``pecanpy.collective.*`` spans in the steps' job (tracing stays off, so
+    the profile holds no range of the port's)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pecanpy_tpu_torch.models import sgns
-    from pecanpy_tpu_torch.parallel import mesh as mesh_lib
+    from pecanpy_tpu_torch.utils import trace
 
     n, dev = trainer.num_nodes, trainer.mesh.device
     w_in, w_out = trainer.init_params(seed)
@@ -2094,18 +2099,20 @@ def mc_step_profile(trainer, steps=MC_PROFILE_STEPS, seed=0, prof_out=None):
 
     step(0)
     torch.cuda.synchronize()
-    mesh_lib.reset_stats()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace.job("pecanpy.smoke.steps"), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(1, steps + 1):
             step(i)
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
+    rec = trace.last_job("pecanpy.smoke.steps")
     events = prof.key_averages()
-    busy_us = sum(self_device_us(e) for e in events if e.device_type == DeviceType.CUDA)
-    coll_us = sum(e.cpu_time_total for e in events if e.key.startswith("collective:"))
-    copy_us = sum(self_device_us(e) for e in events
-                  if e.device_type == DeviceType.CUDA and "Memcpy" in e.key)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_us = sum(self_device_us(e) for e in kernels)
+    coll_us = sum(t.total_ns for name, t in rec.spans.items()
+                  if name.startswith("pecanpy.collective.")) / 1e3
+    copy_us = sum(self_device_us(e) for e in kernels if "Memcpy" in e.key)
     if prof_out is not None:
         prof_out.append(events.table(sort_by="cpu_time_total", row_limit=25))
     host_ms = 1e3 * host_s / steps
@@ -2117,8 +2124,19 @@ def mc_step_profile(trainer, steps=MC_PROFILE_STEPS, seed=0, prof_out=None):
         "collective_ms": coll_us / 1e3 / steps,
         "collective_share": coll_us / 1e3 / steps / host_ms,
         "staging_copy_ms": copy_us / 1e3 / steps,
-        "staged_bytes": mesh_lib.STATS["staged_bytes"] / steps,
-        "collective_calls": mesh_lib.STATS["calls"] / steps,
+        "staged_bytes": rec.counter("collective.staged_bytes") / steps,
+        "collective_calls": rec.counter("collective.calls") / steps,
+    }
+
+
+def mc_train_run(rec):
+    """``train_streaming_multichip``'s seconds and counts in the job ``rec``
+    (``pecanpy_tpu_torch/utils/trace.py``): the count pass, the steps,
+    steps run, batches, walks a step."""
+    return {
+        "count_s": rec.span("pecanpy.parallel.count_pass").total_ns / 1e9,
+        "train_s": rec.counter("parallel.train_ns") / 1e9,
+        **{k: rec.counter(f"parallel.{k}") for k in ("steps", "batches", "batch")},
     }
 
 
@@ -2131,7 +2149,7 @@ def mc_rank_path(mesh, bench_path, hub_path, bench_host, hub_host):
     from pecanpy_tpu_torch.ops import apply as apply_lib
     from pecanpy_tpu_torch.ops import trialkernel
     from pecanpy_tpu_torch.parallel import distgraph, train
-    from pecanpy_tpu_torch.parallel import mesh as mesh_lib
+    from pecanpy_tpu_torch.utils import trace
 
     out = {"rank": mesh.rank}
     dev, shard = mesh.device, mesh.data_rank
@@ -2153,21 +2171,22 @@ def mc_rank_path(mesh, bench_path, hub_path, bench_host, hub_host):
         distgraph.simulate_walks_distributed(  # warm-up at a short length
             bench_host, mesh, starts[:4096], 4, 0.5, 2.0, exchange=exchange)
         torch.cuda.synchronize()
-        mesh_lib.reset_stats()
         t0 = time.perf_counter()
-        w, e = distgraph.simulate_walks_distributed(
-            bench_host, mesh, starts, WALK_LENGTH, 0.5, 2.0, exchange=exchange)
+        with trace.job("pecanpy.smoke.walks"):
+            w, e = distgraph.simulate_walks_distributed(
+                bench_host, mesh, starts, WALK_LENGTH, 0.5, 2.0, exchange=exchange)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        rec = trace.last_job("pecanpy.smoke.walks")
         model = distgraph.exchange_cost_model(b, 2, width)
         fetches = WALK_LENGTH + 1  # the start rows, then one fetch a step
         out["a"][exchange] = {
             "equal": bool(torch.equal(w, ref_w) and torch.equal(e, ref_e)),
             "ms_per_step": 1e3 * dt / WALK_LENGTH,
-            "bytes_per_fetch": mesh_lib.STATS["bytes"] / fetches,
+            "bytes_per_fetch": rec.counter("collective.bytes") / fetches,
             "model_bytes_per_fetch": model["psum_bytes" if exchange == "psum" else "a2a_bytes"],
-            "staged_bytes_per_step": mesh_lib.STATS["staged_bytes"] / WALK_LENGTH,
-            "collective_calls": mesh_lib.STATS["calls"],
+            "staged_bytes_per_step": rec.counter("collective.staged_bytes") / WALK_LENGTH,
+            "collective_calls": rec.counter("collective.calls"),
         }
     del full, ref_w, ref_e, w, e
     torch.cuda.empty_cache()
@@ -2180,16 +2199,17 @@ def mc_rank_path(mesh, bench_path, hub_path, bench_host, hub_host):
                                     partition=partition)
         local = tr.shard_batch(hub_starts)
         reset_counts()
-        mesh_lib.reset_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        w, e = tr.walk(local, tr.walk_draws(0, 0, local.shape[0]))
+        with trace.job("pecanpy.smoke.walks"):
+            w, e = tr.walk(local, tr.walk_draws(0, 0, local.shape[0]))
         torch.cuda.synchronize()
         res[partition] = {
             "walks": w, "eff": e, "s": time.perf_counter() - t0,
             "trial_propose": trialkernel.trial_propose.launches,
             "trial_accept": trialkernel.trial_accept.launches,
-            "staged_bytes": mesh_lib.STATS["staged_bytes"],
+            "staged_bytes": trace.last_job("pecanpy.smoke.walks").counter(
+                "collective.staged_bytes"),
         }
         del tr
     out["b"] = {
@@ -2220,7 +2240,7 @@ def mc_rank_path(mesh, bench_path, hub_path, bench_host, hub_host):
         "digest": mc_digest(emb),
         "finite": bool(np.isfinite(emb).all()),
         "shape": emb.shape,
-        **{k: train.last_run[k] for k in ("count_s", "train_s", "steps", "batches", "batch")},
+        **mc_train_run(trace.last_job("pecanpy.embed")),
     }
     del emb, g
     tr = train.MultichipTrainer(mesh, bench_host, mc_bench_config(), WALK_LENGTH, 0.5, 2.0)
@@ -2236,8 +2256,9 @@ def mc_rank_path(mesh, bench_path, hub_path, bench_host, hub_host):
                                     2.0, partition=partition)
         t0 = time.perf_counter()
         emb = train.train_streaming_multichip(tr, sched, seed=0)
+        steps = trace.last_job("pecanpy.parallel.train_streaming").counter("parallel.steps")
         out["d"][partition] = {"digest": mc_digest(emb), "s": time.perf_counter() - t0,
-                               "steps": train.last_run["steps"],
+                               "steps": steps,
                                "finite": bool(np.isfinite(emb).all())}
         del tr, emb
         torch.cuda.empty_cache()

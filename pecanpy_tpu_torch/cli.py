@@ -37,6 +37,7 @@ import warnings
 import numpy as np
 
 from pecanpy_tpu_torch import experimental, graph, pecanpy
+from pecanpy_tpu_torch.utils import trace
 from pecanpy_tpu_torch.wrappers import Timer
 
 
@@ -164,8 +165,9 @@ def parse_args(argv=None):
         metavar="DIR",
         default=None,
         help="Capture a torch.profiler trace of the pipeline (host "
-        "activity, and the CUDA kernels on a GPU) into DIR as a Chrome "
-        "trace JSON (view in chrome://tracing or Perfetto).",
+        "activity, the port's pecanpy.* spans, and the CUDA kernels on a "
+        "GPU) into DIR as a Chrome trace JSON (view in chrome://tracing or "
+        "Perfetto).",
     )
     parser.add_argument(
         "--trainer",
@@ -390,7 +392,11 @@ def export_walks(args, g):
     ids = g.nodes
     with open(args.output, "w", encoding="utf-8") as f:
         for walks, eff in g._walk_chunks(args.num_walks, args.walk_length):
-            for row, n in zip(walks.cpu().numpy(), eff.cpu().numpy()):
+            with trace.sync("pecanpy.walk.read"):
+                walks = walks.cpu().numpy()
+            with trace.sync("pecanpy.walk.read"):
+                eff = eff.cpu().numpy()
+            for row, n in zip(walks, eff):
                 f.write(" ".join(ids[node] for node in row[:n]))
                 f.write("\n")
 
@@ -398,16 +404,21 @@ def export_walks(args, g):
 @contextlib.contextmanager
 def profiled(directory: str, device: str):
     """Trace the enclosed work with ``torch.profiler`` (host activity,
-    plus the CUDA activity on a GPU) and write it into ``directory`` as a
-    Chrome trace JSON."""
+    plus the CUDA activity on a GPU), with the port's spans enabled
+    (``utils/trace.py``: each a ``pecanpy.*`` range beside the kernels),
+    and write it into ``directory`` as a Chrome trace JSON."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if str(device).startswith("cuda"):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(directory, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
+    trace.enable()
+    try:
+        with profile(activities=activities) as prof:
+            yield
+    finally:
+        trace.disable()
     prof.export_chrome_trace(
         os.path.join(directory, f"pecanpy_{os.getpid()}.{time.time_ns()}.pt.trace.json")
     )

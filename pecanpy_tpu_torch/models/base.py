@@ -29,6 +29,7 @@ from pecanpy_tpu_torch.models import engine
 from pecanpy_tpu_torch.ops import layout
 from pecanpy_tpu_torch.ops.layout import DEFAULT_DEGREE_CAP, DeviceCSR
 from pecanpy_tpu_torch.typing import Embeddings, HasNbrs, MoveForward
+from pecanpy_tpu_torch.utils import trace
 from pecanpy_tpu_torch.wrappers import Timer
 
 DEFAULT_WALKER_BATCH = 131072
@@ -139,9 +140,11 @@ class Base(BaseGraph):
         raise NotImplementedError
 
     def get_device_graph(self) -> DeviceCSR:
-        """Padded device layout of this graph (built once, cached)."""
+        """Padded device layout of this graph (built once, cached; the
+        build is the job ``pecanpy.layout``)."""
         if self._device_graph is None:
-            self._device_graph = self._build_device_graph()
+            with trace.job("pecanpy.layout"):
+                self._device_graph = self._build_device_graph()
         return self._device_graph
 
     def get_host_graph(self) -> DeviceCSR:
@@ -196,14 +199,16 @@ class Base(BaseGraph):
 
     def get_noise_thresholds(self) -> np.ndarray:
         """Per-node node2vec+ noise thresholds (``sparse_rw.py:22-35``)."""
-        return self.get_device_graph().threshold[:-1].cpu().numpy()
+        with trace.sync("pecanpy.graph.read"):
+            return self.get_device_graph().threshold[:-1].cpu().numpy()
 
     def get_has_nbrs(self) -> HasNbrs:
         """Scalar has-neighbors callback (reference: ``sparse_rw.py:12-20``).
 
         Provided for API parity; the batch engines check degrees inline.
         """
-        deg = self.get_device_graph().deg.cpu().numpy()
+        with trace.sync("pecanpy.graph.read"):
+            deg = self.get_device_graph().deg.cpu().numpy()
 
         def has_nbrs(idx: int) -> bool:
             return bool(deg[idx] > 0)
@@ -234,7 +239,8 @@ class Base(BaseGraph):
         calls = itertools.count()
 
         def node(idx: int) -> torch.Tensor:
-            return torch.tensor([idx], dtype=torch.int32, device=self.device)
+            with trace.sync("pecanpy.walk.move_forward_upload"):
+                return torch.tensor([idx], dtype=torch.int32, device=self.device)
 
         def move_forward(cur_idx: int, prev_idx: Optional[int] = None) -> int:
             draws = engine.SamplerDrawStream(
@@ -250,7 +256,8 @@ class Base(BaseGraph):
             else:
                 prev = node(prev_idx)
                 nxt = step_fn(dg, u, cur, prev, cur_rows, dg.gather_rows(prev), *extra)
-            return int(nxt[0])
+            with trace.sync("pecanpy.walk.move_forward_read"):
+                return int(nxt[0])
 
         return move_forward
 
@@ -340,7 +347,8 @@ class Base(BaseGraph):
 
         Chunk i draws from a generator seeded by (seed, i), so every call
         reproduces the identical chunk stream: the contract the streaming
-        trainer's passes rely on.
+        trainer's passes rely on. Each chunk's work is the span
+        ``pecanpy.walk.chunk``, closed before the chunk is yielded.
         """
         self._preprocess_transition_probs()
         dg = self.get_device_graph()
@@ -354,8 +362,10 @@ class Base(BaseGraph):
         n_chunks = -(-total // chunk)
         t0 = time.perf_counter()
         for i, lo in enumerate(range(0, total, chunk)):
-            part = starts[lo : lo + chunk]
-            walks, eff = run(dg, torch.from_numpy(part).to(self.device), i)
+            with trace.span("pecanpy.walk.chunk"):
+                with trace.sync("pecanpy.walk.start_upload"):
+                    start = torch.from_numpy(starts[lo : lo + chunk]).to(self.device)
+                walks, eff = run(dg, start, i)
             if self.verbose and n_chunks > 1:
                 done = min(lo + chunk, total)
                 rate = done * walk_length / max(
@@ -368,6 +378,7 @@ class Base(BaseGraph):
                 )
             yield walks, eff
 
+    @trace.job("pecanpy.walks")
     def simulate_walks_device(
         self, num_walks: int, walk_length: int
     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -376,6 +387,8 @@ class Base(BaseGraph):
         Returns:
             walks: [num_walks * N, walk_length + 1] int32 node indices.
             eff_len: [num_walks * N] int32 effective walk lengths.
+
+        The call is the job ``pecanpy.walks`` (``utils/trace.py``).
         """
         parts = list(self._walk_chunks(num_walks, walk_length))
         if len(parts) == 1:
@@ -388,8 +401,10 @@ class Base(BaseGraph):
     def simulate_walks(self, num_walks: int, walk_length: int) -> List[List[str]]:
         """Generate walks as lists of node-ID strings (reference API)."""
         walks, eff_len = self.simulate_walks_device(num_walks, walk_length)
-        walks = walks.cpu().numpy()
-        eff_len = eff_len.cpu().numpy()
+        with trace.sync("pecanpy.walk.read"):
+            walks = walks.cpu().numpy()
+        with trace.sync("pecanpy.walk.read"):
+            eff_len = eff_len.cpu().numpy()
         ids = self.nodes
         return [
             [ids[node] for node in row[:n]] for row, n in zip(walks, eff_len)
@@ -400,6 +415,7 @@ class Base(BaseGraph):
     # tokens above which embed() streams walks instead of storing them
     STREAMING_TOKEN_THRESHOLD = 100_000_000
 
+    @trace.job("pecanpy.embed")
     def embed(
         self,
         dim: int = 128,
@@ -452,6 +468,8 @@ class Base(BaseGraph):
         take ``cuda:(rank % device_count)`` (or the CPU with
         ``device="cpu"``); ranks that share a card need
         ``PECANPY_TPU_DIST_BACKEND=gloo``.
+
+        The call is the job ``pecanpy.embed`` (``utils/trace.py``).
         """
         from pecanpy_tpu_torch.models import sgns
 
@@ -613,9 +631,12 @@ class Base(BaseGraph):
             mesh = mesh_lib.make_mesh(n_devices, model_parallel, device=self.device)
             # one seed for the world: with random_state=None each process
             # would draw its own, and with it its own shuffle, init and walks
-            seed = torch.tensor([self._seed()], dtype=torch.int64, device=mesh.device)
+            with trace.sync("pecanpy.parallel.seed_upload"):
+                seed = torch.tensor(
+                    [self._seed()], dtype=torch.int64, device=mesh.device)
             dist.broadcast(seed, src=0)
-            self._resolved_seed = int(seed)
+            with trace.sync("pecanpy.parallel.seed_read"):
+                self._resolved_seed = int(seed)
             trainer = train.MultichipTrainer(mesh, *trainer_args)
             return timer(train.train_streaming_multichip)(
                 trainer, self._start_nodes(num_walks), seed=self._seed(), **kwargs

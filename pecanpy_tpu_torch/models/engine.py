@@ -47,6 +47,7 @@ import torch
 from pecanpy_tpu_torch.ops import rejection, trialkernel
 from pecanpy_tpu_torch.ops.layout import DeviceCSR
 from pecanpy_tpu_torch.ops.rejection import PhaseDrawFn, RoundDraws, _theta_from
+from pecanpy_tpu_torch.utils import trace
 
 FirstFn = Callable[..., torch.Tensor]
 StepFn = Callable[..., torch.Tensor]
@@ -238,7 +239,11 @@ def generate_walks_queued(
 
     The pending count is read on the host once per block of
     ``block_rounds`` rounds (the JAX engine's ``unroll * flush_every``).
-    Output row w always serves ``starts[w]``.
+    Output row w always serves ``starts[w]``. Each block is the span
+    ``pecanpy.walk.hub_block`` (``utils/trace.py``), and the call adds its
+    rounds, rounds x lanes and written steps (a device scalar) to the
+    counters ``walk.hub_rounds``, ``walk.hub_lane_rounds`` and
+    ``walk.hub_steps`` (device sums, read only when asked).
 
     Args:
         starts: [W] int32 start nodes (the walk queue; W >= 1).
@@ -283,7 +288,8 @@ def generate_walks_queued(
     step = torch.ones(b, dtype=torch.int32, device=dev)  # next column to write
     active = torch.ones(b, dtype=torch.bool, device=dev)
     done = torch.zeros(b, dtype=torch.bool, device=dev)
-    next_w = torch.tensor(b, dtype=torch.int32, device=dev)
+    with trace.sync("pecanpy.walk.queue_upload"):
+        next_w = torch.tensor(b, dtype=torch.int32, device=dev)
 
     n_batches = -(-w_total // b)
     round_cap = n_batches * walk_length * round_cap_factor + 64
@@ -292,63 +298,66 @@ def generate_walks_queued(
     t = 0
     pending = b
     while pending > 0 and t < round_cap:
-        for _ in range(block):
-            # dead-arrival / dead-start check on the current node
-            has = graph.rows_nbr(cur_rows)[:, 0] != sentinel
-            died = active & ~has & (step <= walk_length)
-            eff_l = torch.where(died, step, eff_l)
+        with trace.span("pecanpy.walk.hub_block"):
+            for _ in range(block):
+                # dead-arrival / dead-start check on the current node
+                has = graph.rows_nbr(cur_rows)[:, 0] != sentinel
+                died = active & ~has & (step <= walk_length)
+                eff_l = torch.where(died, step, eff_l)
 
-            # one trial block over every lane; first-order lanes force
-            # acceptance of trial 1's proposal (their atom mass is 0)
-            needs = active & has & (step <= walk_length)
-            x, ok, wx = trial_fn(
-                draws(t, graph.rows_degree(cur_rows)), prev, cur, cur_rows,
-                theta if use_atom else None, wp if use_atom else None,
-                force_ok=step == 1,
-            )
-            t += 1
-            adv = needs & ok
-            prev = torch.where(adv, cur, prev)
-            cur = torch.where(adv, x, cur)
-            col = torch.where(adv, step, walk_length + 1)
-            buf_l.scatter_(1, col[:, None].long(), x[:, None])
-            step = step + adv.to(torch.int32)
+                # one trial block over every lane; first-order lanes force
+                # acceptance of trial 1's proposal (their atom mass is 0)
+                needs = active & has & (step <= walk_length)
+                x, ok, wx = trial_fn(
+                    draws(t, graph.rows_degree(cur_rows)), prev, cur, cur_rows,
+                    theta if use_atom else None, wp if use_atom else None,
+                    force_ok=step == 1,
+                )
+                t += 1
+                adv = needs & ok
+                prev = torch.where(adv, cur, prev)
+                cur = torch.where(adv, x, cur)
+                col = torch.where(adv, step, walk_length + 1)
+                buf_l.scatter_(1, col[:, None].long(), x[:, None])
+                step = step + adv.to(torch.int32)
 
-            # finished lanes park until the block-boundary flush + claim
-            finished = died | (step > walk_length)
-            done = done | (active & finished)
-            active = active & ~finished
+                # finished lanes park until the block-boundary flush + claim
+                finished = died | (step > walk_length)
+                done = done | (active & finished)
+                active = active & ~finished
 
-            cur_rows = graph.gather_rows(cur)  # the one row gather per round
+                cur_rows = graph.gather_rows(cur)  # the one row gather per round
+                if use_atom:
+                    if undirected:
+                        wp_n = wx
+                    else:
+                        _, wp_n = rejection.membership(graph, prev, cur_rows)
+                    theta_n = _theta_from(graph, wp_n, cur_rows, excess, alpha_np)
+                    theta = torch.where(adv, theta_n, theta)
+                    wp = torch.where(adv, wp_n, wp)
+
+            # block boundary: flush done lanes' rows, then claim new walks
+            tgt = torch.where(done, wid, w_total).long()
+            big[tgt] = buf_l[:, : walk_length + 1]
+            eff_big[tgt] = eff_l
+            rank = torch.cumsum(done.to(torch.int32), dim=0, dtype=torch.int32)
+            wid_new = next_w + rank - 1
+            claim = done & (wid_new < w_total)
+            next_w = torch.clamp(next_w + rank[-1], max=w_total)
+            wid = torch.where(claim, wid_new, wid)
+            cur = torch.where(
+                claim, starts[torch.clamp(wid_new, max=w_total - 1).long()], cur)
+            step = torch.where(claim, 1, step)
+            eff_l = torch.where(claim, walk_length + 1, eff_l)
+            buf_l[:, 0] = torch.where(claim, cur, buf_l[:, 0])
+            active = active | claim
+            done = torch.zeros_like(done)  # flushed; unclaimed lanes retire
             if use_atom:
-                if undirected:
-                    wp_n = wx
-                else:
-                    _, wp_n = rejection.membership(graph, prev, cur_rows)
-                theta_n = _theta_from(graph, wp_n, cur_rows, excess, alpha_np)
-                theta = torch.where(adv, theta_n, theta)
-                wp = torch.where(adv, wp_n, wp)
-
-        # block boundary: flush done lanes' rows, then claim new walks
-        tgt = torch.where(done, wid, w_total).long()
-        big[tgt] = buf_l[:, : walk_length + 1]
-        eff_big[tgt] = eff_l
-        rank = torch.cumsum(done.to(torch.int32), dim=0, dtype=torch.int32)
-        wid_new = next_w + rank - 1
-        claim = done & (wid_new < w_total)
-        next_w = torch.clamp(next_w + rank[-1], max=w_total)
-        wid = torch.where(claim, wid_new, wid)
-        cur = torch.where(claim, starts[torch.clamp(wid_new, max=w_total - 1).long()], cur)
-        step = torch.where(claim, 1, step)
-        eff_l = torch.where(claim, walk_length + 1, eff_l)
-        buf_l[:, 0] = torch.where(claim, cur, buf_l[:, 0])
-        active = active | claim
-        done = torch.zeros_like(done)  # flushed; unclaimed lanes retire
-        if use_atom:
-            theta = torch.where(claim, 0.0, theta)
-            wp = torch.where(claim, 0.0, wp)
-        cur_rows = torch.where(claim[:, None], graph.gather_rows(cur), cur_rows)
-        pending = int(active.sum())  # the one host read per block
+                theta = torch.where(claim, 0.0, theta)
+                wp = torch.where(claim, 0.0, wp)
+            cur_rows = torch.where(claim[:, None], graph.gather_rows(cur), cur_rows)
+            with trace.sync("pecanpy.walk.pending_read"):
+                pending = int(active.sum())  # the one host read per block
 
     # lanes cut off by the round cap flush their partial rows; their eff
     # records the columns actually written
@@ -358,6 +367,17 @@ def generate_walks_queued(
     big[tgt] = buf_l[:, : walk_length + 1]
     eff_big[tgt] = eff_l
     big, eff_big = big[:w_total], eff_big[:w_total]
+    trace.count("walk.hub_rounds", t)
+    trace.count("walk.hub_lane_rounds", t * b)
+    # every column a walk wrote past its start, read only when asked: sums
+    # of rows of 1,024 walks (one full reduction of all of them would stage
+    # through a zeroed global buffer, a memset a chunk) and of the rest
+    rows = w_total // 1024 * 1024
+    if rows:
+        trace.count("walk.hub_steps", eff_big[:rows].view(-1, 1024).sum(1))
+    if rows < w_total:
+        trace.count("walk.hub_steps", eff_big[rows:].sum())
+    trace.count("walk.hub_steps", -w_total)
     # resting emission: columns at/past the effective length repeat the
     # walk's final node
     last = big.gather(1, (eff_big[:, None] - 1).long())
@@ -388,7 +408,10 @@ def generate_walks_amortized(
     lengths, resting emission) match ``generate_walks``; the law is the
     exact second-order one, including the return-edge atom that removes
     1/p from the rejection bound. The first step is a plain first-order
-    ``propose`` fed by ``draws(FIRST, deg)``.
+    ``propose`` fed by ``draws(FIRST, deg)``. Each block of ``unroll``
+    rounds is the span ``pecanpy.walk.hub_block``, and the rounds add to
+    the counters of ``generate_walks_queued`` (the steps written in the
+    rounds, from column 2, as a device tensor).
 
     Args:
         start: [B] int32 start nodes.
@@ -455,40 +478,49 @@ def generate_walks_amortized(
         n = (alive & (step <= walk_length)).sum(dtype=torch.int32)
         if graph.loop_sync is not None:  # every rank runs the same rounds
             n = graph.loop_sync(n)
-        return int(n)
+        with trace.sync("pecanpy.walk.pending_read"):
+            return int(n)
 
     t = 0
     pending = pending_count()
     while pending > 0 and t < round_cap:
-        for _ in range(unroll):
-            needs = alive & (step <= walk_length)
-            x, ok, wx = trial_fn(
-                draws(t, graph.rows_degree(cur_rows)), prev, cur, cur_rows, theta, wp
-            )
-            t += 1
-            adv = needs & ok
-            col = torch.where(adv, step, walk_length + 1)
-            buf.scatter_(1, col[:, None].long(), x[:, None])
-            prev = torch.where(adv, cur, prev)
-            cur = torch.where(adv, x, cur)
-            cur_rows = graph.gather_rows(cur)  # the one row gather per round
-            step = step + adv.to(torch.int32)
-            # arrival check: stepping onto a node with no out-edges ends
-            # the walk, recording the effective length
-            has = graph.rows_nbr(cur_rows)[:, 0] != sentinel
-            died = adv & ~has & (step <= walk_length)
-            eff = torch.where(died, step, eff)
-            alive = alive & ~died
-            if use_atom:
-                if undirected:
-                    wp_n = wx  # w(new cur -> new prev) == w(cur -> x)
-                else:
-                    _, wp_n = rejection.membership(graph, prev, cur_rows)
-                theta_n = _theta_from(graph, wp_n, cur_rows, excess, alpha_np)
-                theta = torch.where(adv, theta_n, theta)
-                wp = torch.where(adv, wp_n, wp)
-        pending = pending_count()  # the one host read per block
+        with trace.span("pecanpy.walk.hub_block"):
+            for _ in range(unroll):
+                needs = alive & (step <= walk_length)
+                x, ok, wx = trial_fn(
+                    draws(t, graph.rows_degree(cur_rows)), prev, cur, cur_rows, theta,
+                    wp,
+                )
+                t += 1
+                adv = needs & ok
+                col = torch.where(adv, step, walk_length + 1)
+                buf.scatter_(1, col[:, None].long(), x[:, None])
+                prev = torch.where(adv, cur, prev)
+                cur = torch.where(adv, x, cur)
+                cur_rows = graph.gather_rows(cur)  # the one row gather per round
+                step = step + adv.to(torch.int32)
+                # arrival check: stepping onto a node with no out-edges ends
+                # the walk, recording the effective length
+                has = graph.rows_nbr(cur_rows)[:, 0] != sentinel
+                died = adv & ~has & (step <= walk_length)
+                eff = torch.where(died, step, eff)
+                alive = alive & ~died
+                if use_atom:
+                    if undirected:
+                        wp_n = wx  # w(new cur -> new prev) == w(cur -> x)
+                    else:
+                        _, wp_n = rejection.membership(graph, prev, cur_rows)
+                    theta_n = _theta_from(graph, wp_n, cur_rows, excess, alpha_np)
+                    theta = torch.where(adv, theta_n, theta)
+                    wp = torch.where(adv, wp_n, wp)
+            pending = pending_count()  # the one host read per block
 
+    trace.count("walk.hub_rounds", t)
+    trace.count("walk.hub_lane_rounds", t * b)
+    # every column a lane wrote in the rounds (from column 2), read only
+    # when asked: ``step`` is each lane's next column
+    trace.count("walk.hub_steps", step)
+    trace.count("walk.hub_steps", -2 * b)
     # resting emission: columns past the effective length (or past a
     # round-cap truncation) repeat the walker's final node
     cols = torch.arange(walk_length + 1, dtype=torch.int32, device=dev)[None, :]

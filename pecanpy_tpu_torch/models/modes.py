@@ -29,6 +29,7 @@ from pecanpy_tpu_torch.ops.layout import (
     build_device_csr,
     device_csr_from_dense,
 )
+from pecanpy_tpu_torch.utils import trace
 
 
 def _amortized() -> bool:
@@ -300,7 +301,8 @@ class PreComp(_SparseModeBase):
     def preprocess_transition_probs(self):
         dg = self.get_device_graph()
         w = min(self.PRECOMP_WIDTH, dg.dpad)
-        e = int(dg.indptr[-1])
+        with trace.sync("pecanpy.walk.edges_read"):
+            e = int(dg.indptr[-1])
         if e * w >= 2**31:
             raise ValueError(
                 f"PreComp's per-edge tables need E * {w} < 2^31 (got E={e}); "
@@ -374,7 +376,8 @@ class PreComp(_SparseModeBase):
 def _flat_edge_positions(dg: DeviceCSR):
     """Per-edge (source node, slot of the edge in the node's row), both
     [E] int64, in CSR edge order."""
-    e = int(dg.indptr[-1])
+    with trace.sync("pecanpy.walk.edges_read"):
+        e = int(dg.indptr[-1])
     dev = dg.fused.device
     edge_cur = torch.repeat_interleave(
         torch.arange(dg.num_nodes, device=dev), dg.deg.long(), output_size=e

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from pecanpy_tpu_torch.ops.apply import apply_mean_updates, apply_mean_updates_two
+from pecanpy_tpu_torch.utils import trace
 from pecanpy_tpu_torch.utils.checkpoint import SGNSCheckpointer, verify_rng_scheme
 
 # Version tag of the port's draw derivation: walk chunks from
@@ -310,6 +311,9 @@ def make_step_body(num_nodes: int, config: SGNSConfig, model_group=None, data_gr
       stochastic-rounding seed is the data group's minimum.
 
     With both None the step is the single-device one, bit for bit.
+
+    Steps 1-4 (the update streams) are the span ``pecanpy.sgns.body``;
+    the two table passes follow it (``ops/apply.py``'s spans).
     """
     window = config.window
     k_neg = config.negative
@@ -319,15 +323,19 @@ def make_step_body(num_nodes: int, config: SGNSConfig, model_group=None, data_gr
         else 2.0 * config.window
     )
 
-    def step(w_in, w_out, walks, eff_len, keep_prob, neg_table, lr,
-             draws: StepDraws):
+    def body(w_in, w_out, walks, eff_len, keep_prob, neg_table, draws: StepDraws):
+        """Steps 1-4: (the update streams, the stochastic-rounding seed)."""
         wb, t = walks.shape
         dim = w_in.shape[1]
         dev = walks.device
         ti = torch.arange(t, device=dev)
         rng_seed = draws.rng_seed
         if data_group is not None:  # common to the data ranks (bf16 rounding)
-            rng_seed = int(data_group.all_reduce(torch.tensor(rng_seed, device=dev), "min"))
+            with trace.sync("pecanpy.sgns.seed_upload"):
+                seed_t = torch.tensor(rng_seed, device=dev)
+            seed_t = data_group.all_reduce(seed_t, "min")
+            with trace.sync("pecanpy.sgns.seed_read"):
+                rng_seed = int(seed_t)
 
         # 1. Subsample: prune dropped tokens, compact each walk left
         #    (kept tokens first, order stable; the keys are distinct).
@@ -367,10 +375,9 @@ def make_step_body(num_nodes: int, config: SGNSConfig, model_group=None, data_gr
             neg_logits = torch.einsum("rmd,kmd->krm", v_pad, rolled).reshape(
                 k_neg, reps * m_pool
             )[:, :bt]  # [K, BT]
-            slot = (
-                torch.tensor(bases, device=dev)[:, None]
-                + torch.arange(bt, device=dev)[None, :]
-            ) % m_pool
+            with trace.sync("pecanpy.sgns.bases_upload"):
+                bases_t = torch.tensor(bases, device=dev)
+            slot = (bases_t[:, None] + torch.arange(bt, device=dev)[None, :]) % m_pool
             negs = pool_r[slot].T.reshape(wb, t, k_neg)  # ids (collisions)
         else:
             negs = neg_table[draws.neg_slots.long()]  # [Wb, T, K]
@@ -429,15 +436,22 @@ def make_step_body(num_nodes: int, config: SGNSConfig, model_group=None, data_gr
             c_v_flat = pair_cnt.reshape(-1)
             negs_flat = negs.reshape(-1)
 
-        # 5. Apply: context gradients into W_in; W_out takes the center
-        #    stream and the negative stream in ONE merged pass, as
-        #    separate normalization groups.
+        # 5. (in ``step``) Apply: context gradients into W_in; W_out takes
+        #    the center stream and the negative stream in ONE merged pass,
+        #    as separate normalization groups.
         streams = [
             ids_tok, dv.reshape(-1, dim), cnt_v.reshape(-1), du.reshape(-1, dim),
             cnt_u.reshape(-1), negs_flat, du_neg_flat, c_v_flat,
         ]
         if data_group is not None:  # the full stream on every data rank
             streams = [data_group.all_gather(x) for x in streams]
+        return streams, rng_seed
+
+    def step(w_in, w_out, walks, eff_len, keep_prob, neg_table, lr,
+             draws: StepDraws):
+        with trace.span("pecanpy.sgns.body"):
+            streams, rng_seed = body(w_in, w_out, walks, eff_len, keep_prob, neg_table,
+                                     draws)
         ids_tok, dv_f, cnt_v_f, du_f, cnt_u_f, negs_flat, du_neg_flat, c_v_flat = streams
         apply_mean_updates(
             w_in, ids_tok, dv_f, cnt_v_f, lr, cap=cap, rng_seed=rng_seed,
@@ -508,7 +522,8 @@ class _Checkpoints:
                     f"checkpoint table {tuple(saved.shape)} does not match "
                     f"this run's {tuple(table.shape)}"
                 )
-            table.copy_(saved.to(device=table.device, dtype=table.dtype))
+            with trace.sync("pecanpy.sgns.table_upload"):
+                table.copy_(saved.to(device=table.device, dtype=table.dtype))
         return int(meta["next_step"])
 
     def after_step(self, step_idx, w_in, w_out):
@@ -532,7 +547,9 @@ def _run_buffer(step, w_in, w_out, walks, eff_len, eff_host, chunk, keep_prob,
     ``resume`` are already in the restored tables, so the cursor passes
     them without the work (their lrs, draws and tokens stay as in an
     uninterrupted run), and ``ckpt`` snapshots after each chunk-step that
-    ends on its boundary.
+    ends on its boundary. Each chunk-step is the span
+    ``pecanpy.sgns.chunk_step``: its draws (``pecanpy.sgns.draw``), then
+    the step.
     """
     n_chunks = -(-walks.shape[0] // chunk)
     pad = n_chunks * chunk - walks.shape[0]
@@ -546,8 +563,11 @@ def _run_buffer(step, w_in, w_out, walks, eff_len, eff_host, chunk, keep_prob,
     steps = n_chunks if budget is None else min(n_chunks, budget)
     for i in range(min(max(resume - step0, 0), steps), steps):
         sl = slice(i * chunk, (i + 1) * chunk)
-        step(w_in, w_out, walks[sl], eff_len[sl], keep_prob, neg_table,
-             float(lrs[i]), draw(g0 + i, chunk, t))
+        with trace.span("pecanpy.sgns.chunk_step"):
+            with trace.span("pecanpy.sgns.draw"):
+                draws = draw(g0 + i, chunk, t)
+            step(w_in, w_out, walks[sl], eff_len[sl], keep_prob, neg_table,
+                 float(lrs[i]), draws)
         if ckpt is not None:
             ckpt.after_step(step0 + i + 1, w_in, w_out)
     return steps, float(eff_sums[:steps].sum())
@@ -592,11 +612,14 @@ def train(
     eff_len = eff_len.to(torch.int32)
     seed = config.seed if config.seed is not None else 0
 
-    counts = _count_tokens(walks, eff_len, num_nodes)
-    keep_prob = _keep_probs(counts, config.sample)
-    neg_table = torch.from_numpy(
-        build_negative_table(counts.cpu().numpy(), seed=seed)
-    ).to(device)
+    with trace.span("pecanpy.sgns.count_pass"):
+        counts = _count_tokens(walks, eff_len, num_nodes)
+        keep_prob = _keep_probs(counts, config.sample)
+        with trace.sync("pecanpy.sgns.counts_read"):
+            counts_host = counts.cpu().numpy()
+        neg_host = build_negative_table(counts_host, seed=seed)
+        with trace.sync("pecanpy.sgns.neg_upload"):
+            neg_table = torch.from_numpy(neg_host).to(device)
     w_in, w_out = _setup_tables(config, num_nodes, device, seed, _tables)
     ckpt, resume = None, 0
     if checkpoint_dir is not None:
@@ -610,7 +633,8 @@ def train(
 
     chunk = min(resolve_batch_walks(config, num_nodes, walks.shape[1]), walks.shape[0])
     step = make_step_body(num_nodes, config)
-    eff_host = eff_len.cpu().numpy()
+    with trace.sync("pecanpy.sgns.eff_read"):
+        eff_host = eff_len.cpu().numpy()
     total_tokens = float(eff_host.sum()) * config.epochs
     n_chunks = -(-walks.shape[0] // chunk)
 
@@ -621,16 +645,23 @@ def train(
         budget = None if max_steps is None else max_steps - step_idx
         if budget is not None and budget <= 0:
             break
-        steps, tokens = _run_buffer(
-            step, w_in, w_out, walks, eff_len, eff_host, chunk, keep_prob,
-            neg_table,
-            lambda s: _chunk_lrs(config, s, done_tokens, total_tokens),
-            epoch * n_chunks, draw, budget, step_idx, resume, ckpt,
-        )
+        with trace.span("pecanpy.sgns.epoch"):
+            steps, tokens = _run_buffer(
+                step, w_in, w_out, walks, eff_len, eff_host, chunk, keep_prob,
+                neg_table,
+                lambda s: _chunk_lrs(config, s, done_tokens, total_tokens),
+                epoch * n_chunks, draw, budget, step_idx, resume, ckpt,
+            )
         step_idx += steps
         done_tokens += tokens
         _progress(verbose, t_start, done_tokens, total_tokens)
-    return w_in.to(torch.float32).cpu().numpy()
+    return _read_table(w_in)
+
+
+def _read_table(w_in: torch.Tensor) -> np.ndarray:
+    """The trained W_in as a host float32 array."""
+    with trace.sync("pecanpy.sgns.table_read"):
+        return w_in.to(torch.float32).cpu().numpy()
 
 
 def _prefetch_iter(it, depth: int = 1):
@@ -718,28 +749,32 @@ def train_streaming(
 
         return first_pass()
 
-    counts = None
-    for walks, eff_len in stream(-1):
-        if device is None:
-            device = walks.device
-        if counts is None:
-            counts = torch.zeros(num_nodes, dtype=torch.float32, device=device)
-        counts += _count_tokens(walks, eff_len, num_nodes)
-    keep_prob = _keep_probs(counts, config.sample)
-    neg_table = torch.from_numpy(
-        build_negative_table(counts.cpu().numpy(), seed=seed)
-    ).to(device)
-    total_tokens = float(counts.sum()) * config.epochs
+    with trace.span("pecanpy.sgns.count_pass"):
+        counts = None
+        for walks, eff_len in stream(-1):
+            if device is None:
+                device = walks.device
+            if counts is None:
+                counts = torch.zeros(num_nodes, dtype=torch.float32, device=device)
+            counts += _count_tokens(walks, eff_len, num_nodes)
+        keep_prob = _keep_probs(counts, config.sample)
+        with trace.sync("pecanpy.sgns.counts_read"):
+            counts_host = counts.cpu().numpy()
+        neg_host = build_negative_table(counts_host, seed=seed)
+        with trace.sync("pecanpy.sgns.neg_upload"):
+            neg_table = torch.from_numpy(neg_host).to(device)
+        with trace.sync("pecanpy.sgns.tokens_read"):
+            total_tokens = float(counts.sum()) * config.epochs
 
-    # with the cache populated, fetch every buffer's eff_len to the host
-    # in one transfer instead of one blocking copy per buffer
-    host_eff = None
-    if cache:
-        sizes = [int(e.shape[0]) for _, e in cache]
-        host_eff = np.split(
-            torch.cat([e for _, e in cache]).cpu().numpy(),
-            np.cumsum(sizes)[:-1],
-        )
+        # with the cache populated, fetch every buffer's eff_len to the host
+        # in one transfer instead of one blocking copy per buffer
+        host_eff = None
+        if cache:
+            sizes = [int(e.shape[0]) for _, e in cache]
+            with trace.sync("pecanpy.sgns.eff_read"):
+                eff_all = torch.cat([e for _, e in cache]).cpu().numpy()
+            host_eff = np.split(eff_all, np.cumsum(sizes)[:-1])
+    trace.count("sgns.walk_cache_bytes", cached_bytes if cache is not None else 0)
 
     w_in, w_out = _setup_tables(config, num_nodes, device, seed, _tables)
     ckpt, resume = None, 0
@@ -757,32 +792,35 @@ def train_streaming(
     step_idx = 0
     t_start = time.perf_counter()
     for epoch in range(config.epochs):
-        for buf_idx, (walks, eff_len) in enumerate(_prefetch_iter(stream(epoch), 1)):
-            budget = None if max_steps is None else max_steps - step_idx
-            if budget is not None and budget <= 0:
-                break
-            chunk = resolve_batch_walks(config, num_nodes, walks.shape[1])
-            eff_host = (
-                host_eff[buf_idx]
-                if host_eff is not None and buf_idx < len(host_eff)
-                else eff_len.cpu().numpy()
-            )
-            steps, tokens = _run_buffer(
-                step, w_in, w_out, walks.to(torch.int32),
-                eff_len.to(torch.int32), eff_host, chunk, keep_prob,
-                neg_table,
-                lambda s: _chunk_lrs(config, s, done_tokens, total_tokens),
-                step_idx, draw, budget, step_idx, resume, ckpt,
-            )
-            step_idx += steps
-            done_tokens += tokens
-            _progress(verbose, t_start, done_tokens, total_tokens)
+        with trace.span("pecanpy.sgns.epoch"):
+            buffers = _prefetch_iter(stream(epoch), 1)
+            for buf_idx, (walks, eff_len) in enumerate(buffers):
+                budget = None if max_steps is None else max_steps - step_idx
+                if budget is not None and budget <= 0:
+                    break
+                with trace.span("pecanpy.sgns.buffer"):
+                    chunk = resolve_batch_walks(config, num_nodes, walks.shape[1])
+                    if host_eff is not None and buf_idx < len(host_eff):
+                        eff_host = host_eff[buf_idx]
+                    else:
+                        with trace.sync("pecanpy.sgns.eff_read"):
+                            eff_host = eff_len.cpu().numpy()
+                    steps, tokens = _run_buffer(
+                        step, w_in, w_out, walks.to(torch.int32),
+                        eff_len.to(torch.int32), eff_host, chunk, keep_prob,
+                        neg_table,
+                        lambda s: _chunk_lrs(config, s, done_tokens, total_tokens),
+                        step_idx, draw, budget, step_idx, resume, ckpt,
+                    )
+                step_idx += steps
+                done_tokens += tokens
+                _progress(verbose, t_start, done_tokens, total_tokens)
         if verbose:
             print(
                 f"epoch {epoch + 1}/{config.epochs}: "
                 f"{done_tokens:.3e} tokens trained"
             )
-    return w_in.to(torch.float32).cpu().numpy()
+    return _read_table(w_in)
 
 
 def train_sequential(
@@ -829,7 +867,10 @@ def train_sequential(
             "batched trainer instead"
         )
     if isinstance(walks, torch.Tensor):
-        walks, eff_len = walks.cpu().numpy(), eff_len.cpu().numpy()
+        with trace.sync("pecanpy.sgns.walks_read"):
+            walks = walks.cpu().numpy()
+        with trace.sync("pecanpy.sgns.walks_read"):
+            eff_len = eff_len.cpu().numpy()
     walks = np.ascontiguousarray(walks, dtype=np.int32)
     eff_len = np.ascontiguousarray(eff_len, dtype=np.int32)
     if workers is None or workers <= 0:

@@ -42,6 +42,7 @@ from typing import Union
 import torch
 
 from pecanpy_tpu_torch.ops import _kernels
+from pecanpy_tpu_torch.utils import trace
 
 DEFAULT_UPDATE_CAP = 4.0  # max "pair-steps" a row absorbs per application
 _EPS = 1e-9
@@ -91,7 +92,11 @@ def _sorted_scales(keys_s, cnt_s, lr, cap: Cap):
         torch.where(end, cum, inf).flip(0), dim=0
     ).values.flip(0)
     tot = seg_hi - seg_lo
-    cap = torch.as_tensor(cap, dtype=torch.float32, device=tot.device)
+    if isinstance(cap, torch.Tensor):
+        cap = cap.to(device=tot.device, dtype=torch.float32)
+    else:
+        with trace.sync("pecanpy.apply.cap_upload"):
+            cap = torch.as_tensor(cap, dtype=torch.float32, device=tot.device)
     return lr * torch.minimum(tot, cap) / torch.clamp(tot, min=_EPS)
 
 
@@ -503,13 +508,18 @@ def apply_mean_updates(
     ``min(count, cap) / count``. Rows absent from ``ids`` are unchanged;
     entries with cnt 0 and zero upd rows are no-ops. ``ids`` must be
     < table rows. Returns ``table``.
+
+    A CUDA table's stream prep is the span ``pecanpy.apply.prep``, the
+    kernel's launch ``pecanpy.apply.launch``.
     """
     if table.device.type == "cpu":
         return _apply_scatter(table, ids, upd, cnt, lr, cap)
     if ids.shape[0] == 0:
         return table
-    ids_s, upd_s = sorted_stream_one(ids, upd, cnt, lr, cap)
-    return _cuda_applier(table)(table, ids_s, upd_s, rng_seed)
+    with trace.span("pecanpy.apply.prep"):
+        ids_s, upd_s = sorted_stream_one(ids, upd, cnt, lr, cap)
+    with trace.span("pecanpy.apply.launch"):
+        return _cuda_applier(table)(table, ids_s, upd_s, rng_seed)
 
 
 def apply_mean_updates_two(
@@ -538,7 +548,9 @@ def apply_mean_updates_two(
         return _apply_scatter(table, ids_b, upd_b, cnt_b, lr, cap_b)
     if ids_a.shape[0] + ids_b.shape[0] == 0:
         return table
-    ids_s, upd_s = sorted_stream_two(
-        ids_a, upd_a, cnt_a, ids_b, upd_b, cnt_b, lr, cap_a, cap_b
-    )
-    return _cuda_applier(table)(table, ids_s, upd_s, rng_seed)
+    with trace.span("pecanpy.apply.prep"):
+        ids_s, upd_s = sorted_stream_two(
+            ids_a, upd_a, cnt_a, ids_b, upd_b, cnt_b, lr, cap_a, cap_b
+        )
+    with trace.span("pecanpy.apply.launch"):
+        return _cuda_applier(table)(table, ids_s, upd_s, rng_seed)

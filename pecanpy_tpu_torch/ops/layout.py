@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from pecanpy_tpu_torch.ops import hubs as hubs_lib
+from pecanpy_tpu_torch.utils import trace
 
 LANE = 64  # fused channel width granularity (f32 lanes)
 
@@ -309,86 +310,93 @@ def build_device_csr(
         symmetric: declare the graph symmetric (True), directed (False),
             or unknown (None: detected with ``edges_symmetric``).
         device: where the tables live.
+
+    Spans (``utils/trace.py``): ``pecanpy.layout.host_csr`` (the symmetry
+    check, thresholds and padded rows), ``pecanpy.layout.hub_tables``,
+    ``pecanpy.layout.pack`` (the channels into one table) and
+    ``pecanpy.layout.upload`` (each table's copy a sync).
     """
-    indptr = np.asarray(indptr, dtype=np.int64)
-    indices = np.asarray(indices, dtype=np.int64)
-    data = np.asarray(data, dtype=np.float32)
-    num_nodes = indptr.size - 1
-    deg = np.diff(indptr).astype(np.int32)
-    true_max = int(deg.max()) if deg.size and deg.max() > 0 else 1
-    if symmetric is None:
-        symmetric = edges_symmetric(indptr, indices, data)
+    with trace.span("pecanpy.layout.host_csr"):
+        indptr = np.asarray(indptr, dtype=np.int64)
+        indices = np.asarray(indices, dtype=np.int64)
+        data = np.asarray(data, dtype=np.float32)
+        num_nodes = indptr.size - 1
+        deg = np.diff(indptr).astype(np.int32)
+        true_max = int(deg.max()) if deg.size and deg.max() > 0 else 1
+        if symmetric is None:
+            symmetric = edges_symmetric(indptr, indices, data)
 
-    has_hubs = degree_cap is not None and true_max > degree_cap
-    width = min(true_max, degree_cap) if has_hubs else true_max
-    if max_degree is not None:
-        if max_degree < width:
-            raise ValueError(
-                f"max_degree={max_degree} is below the fused width {width}"
+        has_hubs = degree_cap is not None and true_max > degree_cap
+        width = min(true_max, degree_cap) if has_hubs else true_max
+        if max_degree is not None:
+            if max_degree < width:
+                raise ValueError(
+                    f"max_degree={max_degree} is below the fused width {width}"
+                )
+            width = max_degree
+        dpad = _round_up(max(width, 1), LANE)
+
+        if degree_cap is None:
+            # same hard byte budget as the JAX package: one skewed node pads
+            # every row to its degree
+            n_channels = 2 + int(with_thresholds) + int(with_cdf)
+            fused_bytes = num_nodes * dpad * n_channels * 4
+            budget = (
+                int(os.environ.get("PECANPY_TPU_FUSED_BUDGET_MB", "8192"))
+                * (1 << 20)
             )
-        width = max_degree
-    dpad = _round_up(max(width, 1), LANE)
+            if fused_bytes > budget:
+                raise ValueError(
+                    f"uncapped fused layout needs {num_nodes} nodes x {dpad} "
+                    f"slots x {n_channels} channels = {fused_bytes / 2**30:.1f} "
+                    f"GiB (> {budget / 2**30:.1f} GiB budget, "
+                    "PECANPY_TPU_FUSED_BUDGET_MB). The max degree "
+                    f"({true_max}) is too skewed for degree_cap=None: set a "
+                    "degree_cap."
+                )
 
-    if degree_cap is None:
-        # same hard byte budget as the JAX package: one skewed node pads
-        # every row to its degree
-        n_channels = 2 + int(with_thresholds) + int(with_cdf)
-        fused_bytes = num_nodes * dpad * n_channels * 4
-        budget = (
-            int(os.environ.get("PECANPY_TPU_FUSED_BUDGET_MB", "8192"))
-            * (1 << 20)
+        thresholds = np.concatenate(
+            [_segment_stats(indptr, data, gamma), np.ones(1, dtype=np.float32)]
         )
-        if fused_bytes > budget:
-            raise ValueError(
-                f"uncapped fused layout needs {num_nodes} nodes x {dpad} "
-                f"slots x {n_channels} channels = {fused_bytes / 2**30:.1f} "
-                f"GiB (> {budget / 2**30:.1f} GiB budget, "
-                "PECANPY_TPU_FUSED_BUDGET_MB). The max degree "
-                f"({true_max}) is too skewed for degree_cap=None: set a "
-                "degree_cap."
-            )
 
-    thresholds = np.concatenate(
-        [_segment_stats(indptr, data, gamma), np.ones(1, dtype=np.float32)]
-    )
-
-    nbr_p = np.full((num_nodes, dpad), num_nodes, dtype=np.int32)
-    wgt_p = np.zeros((num_nodes, dpad), dtype=np.float32)
-    is_hub_node = deg > degree_cap if has_hubs else np.zeros(num_nodes, bool)
-    if indices.size:
-        row_of_edge = np.repeat(np.arange(num_nodes), deg)
-        col_of_edge = np.arange(indices.size) - indptr[row_of_edge]
-        keep = ~is_hub_node[row_of_edge]
-        nbr_p[row_of_edge[keep], col_of_edge[keep]] = indices[keep]
-        wgt_p[row_of_edge[keep], col_of_edge[keep]] = data[keep]
+        nbr_p = np.full((num_nodes, dpad), num_nodes, dtype=np.int32)
+        wgt_p = np.zeros((num_nodes, dpad), dtype=np.float32)
+        is_hub_node = deg > degree_cap if has_hubs else np.zeros(num_nodes, bool)
+        if indices.size:
+            row_of_edge = np.repeat(np.arange(num_nodes), deg)
+            col_of_edge = np.arange(indices.size) - indptr[row_of_edge]
+            keep = ~is_hub_node[row_of_edge]
+            nbr_p[row_of_edge[keep], col_of_edge[keep]] = indices[keep]
+            wgt_p[row_of_edge[keep], col_of_edge[keep]] = data[keep]
 
     if has_hubs:
-        hub_ids = np.nonzero(is_hub_node)[0]
-        hub_edges = int(deg[is_hub_node].astype(np.int64).sum())
-        hub_frac = round(hub_edges / max(int(indptr[-1]), 1), 2)
-        (
-            edge_pack,
-            hub_base,
-            hkey8,
-            hval8,
-            bucket_base,
-            bucket_log,
-        ) = hubs_lib.build_hub_structures(indptr, indices, data, hub_ids)
-        # marker encoding (see ops/hubs.py HUB_MARKER_SLOTS)
-        nbr_p[hub_ids, 0] = num_nodes + 1 + deg[hub_ids]
-        nbr_p[hub_ids, 1] = hub_base
-        nbr_p[hub_ids, 2] = bucket_base
-        nbr_p[hub_ids, 3] = bucket_log
-        wgt_p[hub_ids, 0] = thresholds[hub_ids]
-        csum = np.concatenate([[0.0], np.cumsum(data, dtype=np.float64)])
-        wgt_p[hub_ids, 1] = (
-            csum[indptr[hub_ids + 1]] - csum[indptr[hub_ids]]
-        ).astype(np.float32)
-        # keys bitcast into the left half of the bucket row, values right
-        buckets = np.concatenate([hkey8.view(np.float32), hval8], axis=1)
-        hub_tables = dict(
-            edge_pack=_pack_super(edge_pack), hbuckets=_pack_super(buckets)
-        )
+        with trace.span("pecanpy.layout.hub_tables"):
+            hub_ids = np.nonzero(is_hub_node)[0]
+            hub_edges = int(deg[is_hub_node].astype(np.int64).sum())
+            hub_frac = round(hub_edges / max(int(indptr[-1]), 1), 2)
+            (
+                edge_pack,
+                hub_base,
+                hkey8,
+                hval8,
+                bucket_base,
+                bucket_log,
+            ) = hubs_lib.build_hub_structures(indptr, indices, data, hub_ids)
+            # marker encoding (see ops/hubs.py HUB_MARKER_SLOTS)
+            nbr_p[hub_ids, 0] = num_nodes + 1 + deg[hub_ids]
+            nbr_p[hub_ids, 1] = hub_base
+            nbr_p[hub_ids, 2] = bucket_base
+            nbr_p[hub_ids, 3] = bucket_log
+            wgt_p[hub_ids, 0] = thresholds[hub_ids]
+            csum = np.concatenate([[0.0], np.cumsum(data, dtype=np.float64)])
+            wgt_p[hub_ids, 1] = (
+                csum[indptr[hub_ids + 1]] - csum[indptr[hub_ids]]
+            ).astype(np.float32)
+            # keys bitcast into the left half of the bucket row, values right
+            buckets = np.concatenate([hkey8.view(np.float32), hval8], axis=1)
+            hub_tables = dict(
+                edge_pack=_pack_super(edge_pack), hbuckets=_pack_super(buckets)
+            )
     else:
         hub_frac = 0.0
         hub_tables = dict(
@@ -396,29 +404,39 @@ def build_device_csr(
             hbuckets=np.empty((0, SUPER_W), dtype=np.float32),
         )
 
-    channels_data = [("nbr", nbr_p), ("wgt", wgt_p)]
-    if with_thresholds:
-        thr_p = np.ones((num_nodes, dpad), dtype=np.float32)
-        small = ~is_hub_node
-        thr_p[small] = thresholds[np.minimum(nbr_p[small], num_nodes)]
-        channels_data.append(("thr", thr_p))
-    if with_cdf:
-        cdf = np.cumsum(wgt_p, axis=1, dtype=np.float64)
-        total = np.maximum(cdf[:, -1:], 1e-30)
-        cdf_p = np.minimum(cdf / total, 1.0).astype(np.float32)
-        cdf_p[is_hub_node] = 1.0  # hub rows draw from the alias tables
-        channels_data.append(("cdf", cdf_p))
+    with trace.span("pecanpy.layout.pack"):
+        channels_data = [("nbr", nbr_p), ("wgt", wgt_p)]
+        if with_thresholds:
+            thr_p = np.ones((num_nodes, dpad), dtype=np.float32)
+            small = ~is_hub_node
+            thr_p[small] = thresholds[np.minimum(nbr_p[small], num_nodes)]
+            channels_data.append(("thr", thr_p))
+        if with_cdf:
+            cdf = np.cumsum(wgt_p, axis=1, dtype=np.float64)
+            total = np.maximum(cdf[:, -1:], 1e-30)
+            cdf_p = np.minimum(cdf / total, 1.0).astype(np.float32)
+            cdf_p[is_hub_node] = 1.0  # hub rows draw from the alias tables
+            channels_data.append(("cdf", cdf_p))
+        fused = pack_fused_host(channels_data)
 
     def put(arr):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        host = torch.from_numpy(np.ascontiguousarray(arr))
+        if not host.numel():  # an empty copy waits for nothing
+            return host.to(device)
+        with trace.sync("pecanpy.layout.table_upload"):
+            return host.to(device)
 
+    with trace.span("pecanpy.layout.upload"):
+        tables = dict(
+            fused=put(fused),
+            deg=put(deg),
+            threshold=put(thresholds),
+            indptr=put(indptr.astype(np.int32)),
+            edge_pack=put(hub_tables["edge_pack"]),
+            hbuckets=put(hub_tables["hbuckets"]),
+        )
     return DeviceCSR(
-        fused=put(pack_fused_host(channels_data)),
-        deg=put(deg),
-        threshold=put(thresholds),
-        indptr=put(indptr.astype(np.int32)),
-        edge_pack=put(hub_tables["edge_pack"]),
-        hbuckets=put(hub_tables["hbuckets"]),
+        **tables,
         channels=tuple(name for name, _ in channels_data),
         dpad=dpad,
         max_degree=true_max,
@@ -467,10 +485,19 @@ def device_csr_from_dense(
 TABLE_FIELDS = ("fused", "deg", "threshold", "indptr", "edge_pack", "hbuckets")
 
 
+def move(t: torch.Tensor, device) -> torch.Tensor:
+    """``t.to(device)``; a copy between the host and a device is a sync
+    (``utils/trace.py``)."""
+    if not t.numel() or t.device.type == torch.device(device).type:
+        return t.to(device)
+    with trace.sync("pecanpy.layout.table_copy"):
+        return t.to(device)
+
+
 def to_device(dg: DeviceCSR, device) -> DeviceCSR:
     """``dg`` with every table on ``device``."""
     return dataclasses.replace(
-        dg, **{f: getattr(dg, f).to(device) for f in TABLE_FIELDS}
+        dg, **{f: move(getattr(dg, f), device) for f in TABLE_FIELDS}
     )
 
 

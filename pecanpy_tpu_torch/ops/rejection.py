@@ -45,6 +45,7 @@ from pecanpy_tpu_torch.ops import hubs as hubs_lib
 from pecanpy_tpu_torch.ops import sampling
 from pecanpy_tpu_torch.ops.layout import DeviceCSR
 from pecanpy_tpu_torch.ops.transition import row_thresholds
+from pecanpy_tpu_torch.utils import trace
 
 _EPS = 1e-30
 
@@ -58,9 +59,6 @@ FIRST_FRACTION = 4
 SWEEP_TRIALS = 4
 COMPACT_FRACTION = 32
 SWEEP_CAP = 256
-# the sweeps of the last ``second_order_sample`` call (read by measurement
-# code; a module attribute, so it holds when a caller wraps the function)
-last_sweeps = 0
 
 
 class TrialDraws(NamedTuple):
@@ -416,8 +414,8 @@ def second_order_sample(
     sweep skips a group that has no pending lane (it would write nothing).
     Each block takes the route of ``use_trial_kernels``: the trial kernels
     pick the membership route per lane, so the group's ``mode`` only
-    routes the plain block. The call's sweep count is kept in
-    ``last_sweeps``.
+    routes the plain block. The call's sweeps add to the open job's
+    counter ``walk.sweeps`` (``utils/trace.py``).
 
     Args:
         draws: the phases' draws (a ``SamplerDrawStream`` or injected).
@@ -425,7 +423,6 @@ def second_order_sample(
 
     Returns [B] int32 samples (valid where active).
     """
-    global last_sweeps
     b = cur.shape[0]
     alpha_np = max(1.0, 1.0 / q)  # bound over non-return candidates
     excess = 1.0 / p - alpha_np
@@ -477,12 +474,13 @@ def second_order_sample(
         counts = torch.stack([pnd.sum(dtype=torch.int32) for pnd, _ in groups])
         if dg.loop_sync is not None:  # every rank runs the same sweeps
             counts = dg.loop_sync(counts)
-        counts = counts.tolist()  # host read
+        with trace.sync("pecanpy.walk.sweep_read"):
+            counts = counts.tolist()  # host read
         if not any(counts):
             break
         for g, (pending, mode) in enumerate(groups):
             if counts[g]:
                 run_phase(pending, n_g + n_g * t + g, s2, SWEEP_TRIALS, mode)
         t += 1
-    last_sweeps = t
+    trace.count("walk.sweeps", t)
     return nxt[:b]

@@ -37,8 +37,9 @@ import torch
 
 from pecanpy_tpu_torch.models import engine, modes
 from pecanpy_tpu_torch.ops import rejection
-from pecanpy_tpu_torch.ops.layout import NEG1, DeviceCSR, shard_rows
+from pecanpy_tpu_torch.ops.layout import NEG1, DeviceCSR, move, shard_rows
 from pecanpy_tpu_torch.parallel.mesh import DATA_AXIS, Group, Mesh
+from pecanpy_tpu_torch.utils import trace
 
 # trials per round of the hub walker (``PECANPY_TPU_AMORTIZED_TRIALS``'s
 # default; the JAX multichip walker's ``trials``)
@@ -136,7 +137,9 @@ class ShardedDeviceCSR(DeviceCSR):
             mine = back[torch.clamp(slot, max=s * cap - 1)]
             rows_out = torch.where(fits[:, None], mine, rows_out)
             served = served | fits
-            pending = int(g.all_reduce((~served).sum(dtype=torch.int32)))
+            left = g.all_reduce((~served).sum(dtype=torch.int32))
+            with trace.sync("pecanpy.parallel.pending_read"):
+                pending = int(left)
             t += 1
         return rows_out.view(torch.float32)
 
@@ -188,12 +191,12 @@ def shard_graph(graph: DeviceCSR, mesh: Mesh) -> ShardedDeviceCSR:
     hb, hb_rows = shard_rows(graph.hbuckets, n_shards, shard, pad_value=NEG1)
     empty = torch.zeros(0, dtype=torch.int32, device=dev)
     return ShardedDeviceCSR(
-        fused=fused.to(dev),
+        fused=move(fused, dev),
         deg=empty,
-        threshold=graph.threshold.to(dev),
+        threshold=move(graph.threshold, dev),
         indptr=empty,
-        edge_pack=ep.to(dev),
-        hbuckets=hb.to(dev),
+        edge_pack=move(ep, dev),
+        hbuckets=move(hb, dev),
         channels=graph.channels,
         dpad=graph.dpad,
         max_degree=graph.max_degree,
@@ -323,7 +326,8 @@ def simulate_walks_distributed(
     total = int(np.asarray(starts).size)
     padded = np.pad(np.asarray(starts, dtype=np.int32), (0, (-total) % n_shards))
     b = padded.size // n_shards
-    mine = torch.from_numpy(padded[shard * b : (shard + 1) * b]).to(dev)
+    with trace.sync("pecanpy.walk.start_upload"):
+        mine = torch.from_numpy(padded[shard * b : (shard + 1) * b]).to(dev)
     dg = for_batch(dg, b, exchange, capacity)
     if _draws is None:
         draws = default_walk_draws(dg, mode, seed or 0, (WALK_STREAM, 0, shard), b, walk_length, dev)

@@ -30,8 +30,18 @@ Gloo takes CUDA tensors for every collective the wrappers use (checked on
 the card with torch 2.11.0+cu128: all_reduce, all_gather,
 all_gather_into_tensor, all_to_all_single and broadcast) and copies them
 through pinned host buffers itself, so the wrappers hand them over as they
-are and only count those host copies in ``STATS``; every kernel and op of
-the step stays on the card. (Staging them in the wrappers through pageable
+are and only count those host copies; every kernel and op of the step
+stays on the card.
+
+Each collective is a span ``pecanpy.collective.<kind>`` and adds to the
+open job's counters (``utils/trace.py``): ``collective.calls``,
+``collective.bytes`` (the bytes it moves for this rank under the
+accounting of ``distgraph.exchange_cost_model``: an all_gather receives
+(S - 1) inputs, an all_reduce and an all_to_all count twice their buffer)
+and ``collective.staged_bytes`` (the bytes gloo copies between the card
+and the host for a collective on CUDA tensors, its input and its output).
+A span, not a sync: NCCL returns at once, and gloo's own waits on the
+card happen inside the call. (Staging them in the wrappers through pageable
 memory instead cost 283-464 against 194-273 ms a fused step on an NVIDIA
 H100 80GB HBM3 at 700 W: PERF.md section 6.)
 """
@@ -42,26 +52,12 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from pecanpy_tpu_torch.models.base import resolve_device
+from pecanpy_tpu_torch.utils import trace
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-
-# this process's collective traffic, reset by the caller: "calls", the
-# bytes each collective moves for this rank under the accounting of
-# ``distgraph.exchange_cost_model`` ("bytes": an all_gather receives
-# (S - 1) inputs, an all_reduce and an all_to_all count twice their
-# buffer), and "staged_bytes", the bytes gloo copies between the card and
-# the host for a collective on CUDA tensors (its input and its output)
-STATS = {"calls": 0, "bytes": 0, "staged_bytes": 0}
-
-
-def reset_stats():
-    for k in STATS:
-        STATS[k] = 0
-
 
 def mesh_grid(n_devices: int, model_parallel: int = 1) -> np.ndarray:
     """[D, M] rank grid: row d holds the model group of data rank d."""
@@ -116,17 +112,18 @@ class Group:
         self.gloo = gloo
 
     def _count(self, t: torch.Tensor, moved: int, out_elems: int):
-        STATS["calls"] += 1
-        STATS["bytes"] += moved * t.element_size()
+        trace.count("collective.calls")
+        trace.count("collective.bytes", moved * t.element_size())
         if self.gloo and t.is_cuda:
-            STATS["staged_bytes"] += (t.numel() + out_elems) * t.element_size()
+            staged = (t.numel() + out_elems) * t.element_size()
+            trace.count("collective.staged_bytes", staged)
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Sum (``psum``) or min (``pmin``) of ``t`` over the group, reduced
         in place and returned: ``t`` is consumed (every caller passes a
         temporary it does not read again)."""
         red = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}[op]
-        with record_function(f"collective:all_reduce_{op}"):
+        with trace.span(f"pecanpy.collective.all_reduce_{op}"):
             self._count(t, 2 * t.numel(), t.numel())
             t = t.contiguous()
             dist.all_reduce(t, op=red, group=self.pg)
@@ -135,7 +132,7 @@ class Group:
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Shards concatenated along dim 0, rank 0's first (JAX:
         ``all_gather(tiled=True)``)."""
-        with record_function("collective:all_gather"):
+        with trace.span("pecanpy.collective.all_gather"):
             self._count(t, (self.size - 1) * t.numel(), self.size * t.numel())
             t = t.contiguous()
             out = t.new_empty((self.size * t.shape[0],) + tuple(t.shape[1:]))
@@ -145,7 +142,7 @@ class Group:
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """Block k of dim 0 goes to rank k; block k of the result came from
         rank k (JAX: ``all_to_all(split_axis=0, concat_axis=0, tiled=True)``)."""
-        with record_function("collective:all_to_all"):
+        with trace.span("pecanpy.collective.all_to_all"):
             self._count(t, 2 * t.numel(), t.numel())
             t = t.contiguous()
             out = torch.empty_like(t)

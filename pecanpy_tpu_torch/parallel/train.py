@@ -38,6 +38,7 @@ from pecanpy_tpu_torch.ops.layout import DeviceCSR
 from pecanpy_tpu_torch.parallel import distgraph
 from pecanpy_tpu_torch.parallel.distgraph import WALK_STREAM
 from pecanpy_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from pecanpy_tpu_torch.utils import trace
 from pecanpy_tpu_torch.utils.checkpoint import SGNSCheckpointer, verify_rng_scheme
 
 # Version tag of the multi-rank draw derivation (module docstring), stamped
@@ -48,11 +49,6 @@ RNG_SCHEME = "torch-multichip-seedsequence-v1"
 # the replicated-graph budget of a CPU rank when
 # ``PECANPY_TPU_REPLICATED_BUDGET_MB`` is unset: 8 GiB
 CPU_REPLICATED_BUDGET_MB = 8192
-
-# seconds and counts of the last ``train_streaming_multichip`` call on this
-# rank: "count_s" (the count pass), "train_s" (the steps), "steps",
-# "batches", "batch" (walks per step, all data ranks)
-last_run: dict = {}
 
 
 def replicated_budget_bytes(device) -> int:
@@ -184,7 +180,8 @@ class MultichipTrainer:
         starts = np.pad(starts, (0, (-starts.size) % n_shards))
         b = starts.size // n_shards
         d = self.mesh.data_rank
-        return torch.from_numpy(starts[d * b : (d + 1) * b]).to(self.mesh.device)
+        with trace.sync("pecanpy.walk.start_upload"):
+            return torch.from_numpy(starts[d * b : (d + 1) * b]).to(self.mesh.device)
 
     # -- stepping -------------------------------------------------------------
 
@@ -269,9 +266,11 @@ def run_fused_step(
     trainer.step(w_in, w_out, local, _to(keep_prob, dev), neg_table, lr, walk(), draws)
     out = {k: trainer.gather_table(w) for k, w in (("w_in", w_in), ("w_out", w_out))}
     out["counts"] = counts
-    return {k: v.float().cpu().numpy() for k, v in out.items()}
+    with trace.sync("pecanpy.parallel.table_read"):
+        return {k: v.float().cpu().numpy() for k, v in out.items()}
 
 
+@trace.job("pecanpy.parallel.train_streaming")
 def train_streaming_multichip(
     trainer: MultichipTrainer,
     starts: np.ndarray,
@@ -304,6 +303,13 @@ def train_streaming_multichip(
         max_steps: stop after this many steps (the lr schedule stays
             pinned to the full plan); the count pass still walks every
             batch.
+
+    The call is the job ``pecanpy.parallel.train_streaming`` (a span of
+    ``pecanpy.embed`` inside an ``embed`` call), with the span
+    ``pecanpy.parallel.count_pass`` and the counters ``parallel.train_ns``
+    (the steps' host time), ``parallel.steps`` (steps run, past a resume),
+    ``parallel.batches`` and ``parallel.batch`` (walks a step, all data
+    ranks).
     """
     mesh, config = trainer.mesh, trainer.config
     n, dev = trainer.num_nodes, mesh.device
@@ -322,19 +328,25 @@ def train_streaming_multichip(
     # replays (walk draws are per batch), and each batch's token sum for
     # the lr schedule; summed over the data ranks once, at the end
     t0 = time.perf_counter()
-    counts = torch.zeros(n, dtype=torch.float32, device=dev)
-    tokens = torch.zeros(len(batches), dtype=torch.float32, device=dev)
-    for i, part in enumerate(batches):
-        local = trainer.shard_batch(part)
-        walks, eff = trainer.walk(local, trainer.walk_draws(seed, i, local.shape[0]))
-        counts += sgns._count_tokens(walks, eff, n)
-        tokens[i] = eff.sum()
-    both = mesh.data.all_reduce(torch.cat([counts, tokens]))
-    counts, batch_tokens = both[:n], both[n:].cpu().numpy().astype(np.float64)
-    counts_np = counts.cpu().numpy()
+    with trace.span("pecanpy.parallel.count_pass"):
+        counts = torch.zeros(n, dtype=torch.float32, device=dev)
+        tokens = torch.zeros(len(batches), dtype=torch.float32, device=dev)
+        for i, part in enumerate(batches):
+            local = trainer.shard_batch(part)
+            walks, eff = trainer.walk(local, trainer.walk_draws(seed, i, local.shape[0]))
+            counts += sgns._count_tokens(walks, eff, n)
+            tokens[i] = eff.sum()
+        both = mesh.data.all_reduce(torch.cat([counts, tokens]))
+        counts = both[:n]
+        with trace.sync("pecanpy.sgns.tokens_read"):
+            batch_tokens = both[n:].cpu().numpy().astype(np.float64)
+        with trace.sync("pecanpy.sgns.counts_read"):
+            counts_np = counts.cpu().numpy()
     count_s = time.perf_counter() - t0
     keep_prob = sgns._keep_probs(counts, config.sample)
-    neg_table = torch.from_numpy(sgns.build_negative_table(counts_np, seed=seed)).to(dev)
+    neg_host = sgns.build_negative_table(counts_np, seed=seed)
+    with trace.sync("pecanpy.sgns.neg_upload"):
+        neg_table = torch.from_numpy(neg_host).to(dev)
     total_tokens = float(counts_np.sum()) * epochs
     if lead:
         print(f"multichip count pass: {len(batches)} batches of {batch} walks, "
@@ -355,13 +367,18 @@ def train_streaming_multichip(
                         f"checkpoint table {tuple(saved.shape)} does not match "
                         f"this run's {(n, config.dim)}"
                     )
-                table.copy_(saved[:, trainer.cols].to(device=dev, dtype=table.dtype))
+                with trace.sync("pecanpy.sgns.table_upload"):
+                    table.copy_(saved[:, trainer.cols].to(device=dev, dtype=table.dtype))
             resume = int(meta["next_step"])
 
     def finish():
-        last_run.update(count_s=count_s, train_s=time.perf_counter() - t1,
-                        steps=step_idx - resume, batches=len(batches), batch=batch)
-        return trainer.gather_table(w_in).float().cpu().numpy()
+        trace.count("parallel.train_ns", int((time.perf_counter() - t1) * 1e9))
+        trace.count("parallel.steps", step_idx - resume)
+        trace.count("parallel.batches", len(batches))
+        trace.count("parallel.batch", batch)
+        full = trainer.gather_table(w_in).float()
+        with trace.sync("pecanpy.sgns.table_read"):
+            return full.cpu().numpy()
 
     step_idx, done_tokens = 0, 0.0
     t1 = time.perf_counter()

@@ -1,2 +1,3 @@
-"""Utilities: the downstream evaluation protocol (``evaluate``) and SGNS
-training checkpoints (``checkpoint``)."""
+"""Utilities: the downstream evaluation protocol (``evaluate``), SGNS
+training checkpoints (``checkpoint``) and the port's spans and counters
+(``trace``)."""

@@ -21,6 +21,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from pecanpy_tpu_torch.utils import trace
+
 _SNAPSHOT = re.compile(r"step_(\d+)\.pt")
 _TMP_PREFIX = ".tmp-"
 
@@ -96,11 +98,11 @@ class SGNSCheckpointer:
     ):
         """Snapshot tables + training cursor at ``step`` (a chunk-step
         count), then keep only the newest ``max_to_keep``."""
-        state = {
-            "w_in": w_in.detach().cpu(),
-            "w_out": w_out.detach().cpu(),
-            "meta": json.dumps(meta),
-        }
+        with trace.sync("pecanpy.checkpoint.table_read"):
+            w_in = w_in.detach().cpu()
+        with trace.sync("pecanpy.checkpoint.table_read"):
+            w_out = w_out.detach().cpu()
+        state = {"w_in": w_in, "w_out": w_out, "meta": json.dumps(meta)}
         final = self._path(step)
         tmp = os.path.join(
             self.directory, f"{_TMP_PREFIX}{os.path.basename(final)}.{os.getpid()}"

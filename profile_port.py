@@ -3,8 +3,8 @@
 
     python3 profile_port.py [--out chiprun_out/profile_port.txt]
                             [--sections walks,sgns,hub,stepsampler,precomp,apply,apply-sweep,
-                                        trial-sweep,quality,multichip]
-                            [--trial-baseline OLD_TRIAL_CU]
+                                        trial-sweep,quality,multichip,cells,census]
+                            [--trial-baseline OLD_TRIAL_CU] [--cells CELL,...]
 
 Runs the configurations of ``chip_smoke.py`` (p=0.5, q=2, walks of 80
 steps) and measures these steady-state windows:
@@ -56,11 +56,24 @@ steps) and measures these steady-state windows:
   (the strictly sequential reference), each scored by the protocol's
   micro-F1 (and at split seeds 0-4, the spread of the split alone) with
   its seconds; then the SGNS window on that graph's walks
-  (13 walks a chunk-step, f32 tables).
+  (13 walks a chunk-step, f32 tables);
+- cells: cells of ``BENCHMARK.json`` (``--cells``; default
+  uniform1m.embed and powerlaw1m.walks) set up as ``portbench/`` sets
+  them up, each traced from inside the port (``utils/trace.py``): the
+  layout's phases, one call timed and one profiled, the call's spans and
+  counters (an untraced call's), and the enabled level's cost (calls in
+  turns, tracing off and on);
+- census: every cell (or ``--cells``), one call under
+  ``torch.cuda.set_sync_debug_mode("warn")``: the synchronizing
+  operations CUDA reports, by site, against the job's ``syncs`` counter;
+  first the host cost of one span at each tracing level.
 
 Each window is timed twice: on the host clock with a synchronize at each
-end (ms per step, rate), and under ``torch.profiler`` (device time by
-op; device idle share = 1 - summed kernel time / host-clock window).
+end (ms per step, rate), and under ``torch.profiler`` with the port's
+tracing enabled (device time by op; device idle share = 1 - summed kernel
+time / host-clock window; each idle gap between kernels put down to the
+innermost port span the host was in, ``pecanpy.*`` device annotations
+left out of the kernels).
 Prints a summary; the full op tables go to ``--out``.
 """
 import argparse
@@ -81,15 +94,65 @@ def log(msg):
     print(msg, flush=True)
 
 
+def span_labels(records):
+    """A function ``t_ns -> name`` of the innermost span of ``records`` (the
+    port's span log, ``trace.spans()``, in its order) that holds the unix
+    time ``t_ns``, or None. Spans nest, so only the last span to start
+    before ``t_ns`` and its ancestors can hold it."""
+    import bisect
+
+    starts = [rec.start_ns for rec in records]
+
+    def at(t_ns):
+        k = bisect.bisect_right(starts, t_ns) - 1
+        while k >= 0:
+            rec = records[k]
+            if rec.end_ns >= t_ns or rec.end_ns == 0:  # 0: still open
+                return rec.name
+            k = rec.parent
+        return None
+
+    return at
+
+
+def idle_gaps(prof, logged, top=8):
+    """The idle stretches between the kernels of a finished profile, each
+    put down to the innermost port span (``utils/trace.py``, enabled while
+    it ran) the host was in at the gap's middle, else "host":
+    [(label, seconds)], the ``top`` largest sums. The device annotations
+    the profiler mirrors from the port's ranges (``pecanpy.*``) are not
+    kernels."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+
+    from pecanpy_tpu_torch.utils import trace
+
+    kernels = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA
+                     and not e.name().startswith(trace.PREFIX))
+    label_at = span_labels(logged)
+    gaps = defaultdict(float)
+    end = None
+    for lo, hi in kernels:
+        if end is not None and lo > end:
+            gaps[label_at((lo + end) // 2) or "host"] += (lo - end) * 1e-9
+        end = hi if end is None else max(end, hi)
+    return sorted(gaps.items(), key=lambda kv: -kv[1])[:top]
+
+
 def profiled(fn, label, out, top=8):
-    """Run ``fn`` once on the host clock and once under the profiler,
-    printing its ``top`` ops by device time; returns (host seconds,
-    device-busy seconds or None)."""
+    """Run ``fn`` once on the host clock and once under the profiler with
+    the port's tracing enabled, printing its ``top`` ops by device time
+    and the idle gaps by port span; returns (host seconds, device-busy
+    seconds or None)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import self_device_us
+    from pecanpy_tpu_torch.utils import trace
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -97,14 +160,23 @@ def profiled(fn, label, out, top=8):
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    trace.reset()
+    trace.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        trace.disable()
     events = prof.key_averages()
     # an op's device time shows twice: on its aten op (host side) and on
-    # the kernels it launched (device side); busy time sums the kernels
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    # the kernels it launched (device side); busy time sums the kernels,
+    # not the annotations the profiler mirrors from the port's ranges
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and not e.key.startswith(trace.PREFIX)]
     busy_us = sum(self_device_us(e) for e in kernels)
+    gaps = idle_gaps(prof, trace.spans())
+    log("    idle gaps by port span: " + ", ".join(f"{k} {v:.4f} s" for k, v in gaps))
     table = events.table(sort_by="self_cuda_time_total", row_limit=TOP_OPS)
     out.write(f"== {label}\n{table}\n")
     ops = [e for e in events if e.device_type != DeviceType.CUDA]
@@ -126,11 +198,15 @@ def main():
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "profile_port.txt"))
     ap.add_argument("--sections", default="walks,sgns,hub,precomp",
                     help="comma-separated subset of walks, sgns, hub, stepsampler, precomp, "
-                         "apply, apply-sweep, trial-sweep, quality, multichip")
+                         "apply, apply-sweep, trial-sweep, quality, multichip, cells, census")
     ap.add_argument("--apply-lib", help="with --sections apply-lib: time kernel 2.1 "
                     "from this build of the library (the sweep's own processes)")
     ap.add_argument("--trial-baseline", help="with --sections trial-sweep: an earlier "
                     "csrc/trial.cu whose kernels take gathered rows, timed first")
+    ap.add_argument("--cells", default=None,
+                    help="with --sections cells or census: comma-separated cells of "
+                         "BENCHMARK.json (default: uniform1m.embed,powerlaw1m.walks for "
+                         "cells, every cell for census)")
     ap.add_argument("--trial-lib", nargs=3, metavar=("LIB", "INPUTS", "DESIGN"),
                     help="with --sections trial-lib: time the trial kernels of LIB on the "
                     "saved lanes INPUTS; DESIGN is ids or rows (the sweep's own processes)")
@@ -173,6 +249,11 @@ def main():
             profile_quality(tmp, out)
         if "multichip" in sections:
             profile_multichip(tmp, out)
+        if "census" in sections:
+            sync_census(args.cells.split(",") if args.cells else None)
+        if "cells" in sections:
+            cells = args.cells or "uniform1m.embed,powerlaw1m.walks"
+            profile_cells(out, cells.split(","))
         log(f"[done] op tables in {os.path.relpath(args.out, REPO)}")
 
 
@@ -506,6 +587,7 @@ def profile_stepsampler(tmp, out):
 
     from chip_smoke import HUB_LANES, WALK_LENGTH, env_set
     from pecanpy_tpu_torch.ops import rejection
+    from pecanpy_tpu_torch.utils import trace
 
     with env_set(PECANPY_TPU_AMORTIZED="0"):
         g, dg, _, _ = hub_graph(tmp)
@@ -517,8 +599,9 @@ def profile_stepsampler(tmp, out):
         sample = rejection.second_order_sample
 
         def counted(*args, **kwargs):
-            nxt = sample(*args, **kwargs)
-            sweeps.append(rejection.last_sweeps)
+            with trace.job("pecanpy.profile.sample"):
+                nxt = sample(*args, **kwargs)
+            sweeps.append(trace.last_job("pecanpy.profile.sample").counter("walk.sweeps"))
             return nxt
 
         result = {}
@@ -845,6 +928,168 @@ def profile_multichip(tmp, out):
                 f"{r['body_ms']:.2f} ms")
             summary[f"rank{rank}_{partition}"] = r
     log(json.dumps({"multichip_profile": summary}))
+
+
+# -- the benchmark's cells, traced from inside the port ---------------------
+
+BENCH_DIR = os.path.join(REPO, "portbench")
+CELL_SEED = 2**31 + 1515  # the set-up's graph; call i runs under CELL_SEED + 1 + i
+
+
+def cell_setup(name):
+    """Benchmark cell ``name`` (``portbench/``) set up on the card as a run
+    sets it up (graph from ``CELL_SEED``, the CLI's reader, layout,
+    warm-up): (cell, mode, entry, set-up diagnostics)."""
+    import torch
+
+    if BENCH_DIR not in sys.path:
+        sys.path.insert(0, BENCH_DIR)
+    from harness import cells, runner
+
+    cell = cells.resolve(name)
+    diag = {}
+    mode, entry, _, _ = runner.set_up(cell, CELL_SEED, torch.device("cuda:0"), diag)
+    torch.cuda.synchronize()
+    return cell, mode, entry, diag
+
+
+def entry_job(entry):
+    from harness.entries import EmbedEntry
+
+    return "pecanpy.embed" if isinstance(entry, EmbedEntry) else "pecanpy.walks"
+
+
+def log_job(rec, label):
+    """A job record (``utils/trace.py``): its spans by total time, each with
+    its count, time a count, waits, and its counters."""
+    counters = {k: rec.counter(k) for k in [*rec.counters, *rec.device_counters]}
+    log(f"[{label}] job {rec.name}: {rec.wall_ns / 1e9:.4f} s, counters {counters}")
+    for name, t in sorted(rec.spans.items(), key=lambda kv: -kv[1].total_ns):
+        log(f"    {name:36s} {t.count:7d} x {t.total_ns / 1e6 / t.count:10.4f} ms = "
+            f"{t.total_ns / 1e9:9.4f} s; wait {t.wait_ns / 1e9:9.4f} s, dispatch "
+            f"{t.dispatch_ns / 1e6 / t.count:10.4f} ms a count")
+
+
+def span_cost(n=200_000):
+    """Host ns of one span, at each level, on this machine's CPU."""
+    from pecanpy_tpu_torch.utils import trace
+
+    def per(make):
+        t0 = time.perf_counter_ns()
+        for _ in range(n):
+            with make("pecanpy.cost.span"):
+                pass
+        return (time.perf_counter_ns() - t0) / n
+
+    free = per(trace.span)
+    with trace.job("pecanpy.cost.job"):
+        span, sync = per(trace.span), per(trace.sync)
+    trace.enable()
+    try:
+        with trace.job("pecanpy.cost.job"):
+            enabled = per(trace.span)
+    finally:
+        trace.disable()
+        trace.reset()
+    log(f"[trace cost] ns a span: outside a job {free:.0f}, in a job {span:.0f}, a sync "
+        f"{sync:.0f}, enabled (log and record_function range) {enabled:.0f}")
+
+
+def profile_cells(out, names):
+    """Each cell's call traced from inside the port: the layout's phases,
+    one call on the host clock and one under the profiler with tracing
+    enabled (the idle gaps by port span), the call's spans and counters,
+    and the enabled level's cost (calls in turns, tracing off and on)."""
+    import torch
+
+    from pecanpy_tpu_torch.utils import trace
+
+    for name in names:
+        cell, mode, entry, diag = cell_setup(name)
+        log(f"[{name}] set-up {', '.join(f'{k} {v:.2f} s' for k, v in diag.items())}")
+        log_job(trace.last_job("pecanpy.layout"), name)
+        calls = iter(range(1, 100))
+        log(f"[{name}] one call, top ops by device time:")
+        host_s, busy_s = profiled(lambda: entry.call(CELL_SEED + next(calls)), name, out,
+                                  top=12)
+        log(f"[{name}] {host_s:.4f} s host clock; device busy {busy_s or 0:.4f} s under "
+            f"the profiler, idle share {1 - (busy_s or 0) / host_s:.4f}")
+        times = {False: [], True: []}
+        for on in (False, True, True, False):
+            if on:
+                trace.enable()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            entry.call(CELL_SEED + next(calls))
+            torch.cuda.synchronize()
+            times[on].append(time.perf_counter() - t0)
+            trace.disable()
+            if not on:
+                rec = trace.last_job(entry_job(entry))
+        log(f"[{name}] enabled level: calls off {times[False]}, on {times[True]} s "
+            f"(off, on, on, off); {trace.dropped()} spans dropped")
+        trace.reset()
+        log_job(rec, f"{name}, an untraced call")
+        entry.release()
+        del mode, entry
+        torch.cuda.empty_cache()
+
+
+def sync_census(names=None):
+    """One call of each cell under ``torch.cuda.set_sync_debug_mode("warn")``:
+    the synchronizing operations CUDA reports, by site, against the job's
+    ``syncs`` counter and its sync spans."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    from pecanpy_tpu_torch.utils import trace
+
+    span_cost()
+    if BENCH_DIR not in sys.path:
+        sys.path.insert(0, BENCH_DIR)
+    from harness import cells
+
+    for name in names or list(cells.all_cells()):
+        _, mode, entry, _ = cell_setup(name)
+        caught, stacks, calling = [], {}, []
+
+        def keep(message, category, filename, lineno, file=None, line=None):
+            # only the call's: switching the mode on once reports itself
+            if not calling or "synchroniz" not in str(message):
+                return
+            site = f"{os.path.relpath(filename, REPO)}:{lineno}"
+            caught.append(site)
+            if not os.path.abspath(filename).startswith(REPO) and site not in stacks:
+                stacks[site] = traceback.format_stack(limit=12)[:-1]
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = keep
+            torch.cuda.set_sync_debug_mode("warn")
+            calling.append(True)
+            try:
+                entry.call(CELL_SEED + 1)
+            finally:
+                calling.clear()
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        rec = trace.last_job(entry_job(entry))
+        sites = collections.Counter(caught)
+        n = sum(sites.values())
+        log(f"[census {name}] {n} synchronizing operations reported, the job's syncs "
+            f"counter {rec.counter(trace.SYNCS)}: "
+            f"{'equal' if n == rec.counter(trace.SYNCS) else 'NOT EQUAL'}")
+        for site, k in sites.most_common():
+            log(f"    {site:48s} {k:7d}")
+        for site, stack in stacks.items():  # a site outside the port: who called it
+            log(f"    {site} reached from:\n" + "".join(stack))
+        log_job(rec, f"census {name}")
+        entry.release()
+        del mode, entry
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

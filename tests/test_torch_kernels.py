@@ -836,6 +836,7 @@ def test_step_sampler_kernel_route_matches_plain(cuda, p, q):
     from pecanpy_tpu_torch.models import engine
     from pecanpy_tpu_torch.ops import rejection, trialkernel
     from pecanpy_tpu_torch.ops.layout import device_csr_from_dense
+    from pecanpy_tpu_torch.utils import trace
 
     adj, cap = _hub_graph(23)
     dg = device_csr_from_dense(adj, degree_cap=cap, device=cuda)
@@ -859,9 +860,10 @@ def test_step_sampler_kernel_route_matches_plain(cuda, p, q):
         before = trialkernel.trial_propose.launches
         trialkernel.trial_block_fused = block
         try:
-            outs.append((rejection.second_order_sample(
-                dg, draws, cur, prev, cur_rows, prev_rows, p, q, False, active),
-                rejection.last_sweeps))
+            with trace.job("pecanpy.test.sample"):
+                nxt = rejection.second_order_sample(
+                    dg, draws, cur, prev, cur_rows, prev_rows, p, q, False, active)
+            outs.append((nxt, trace.last_job("pecanpy.test.sample").counter("walk.sweeps")))
         finally:
             trialkernel.trial_block_fused = fused
         launched = trialkernel.trial_propose.launches - before

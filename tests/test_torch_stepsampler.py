@@ -29,6 +29,7 @@ from pecanpy_tpu_torch import pecanpy
 from pecanpy_tpu_torch.models import engine
 from pecanpy_tpu_torch.ops import layout, rejection
 from pecanpy_tpu_torch.ops.rejection import RoundDraws, TrialDraws
+from pecanpy_tpu_torch.utils import trace
 from test_torch_hubs import (
     _t,
     edge_lanes,
@@ -110,11 +111,13 @@ def test_second_order_sample_bitwise(rng, directed, p, q, hubs):
     )(key, jnp.asarray(active))
 
     tc, tp = torch.from_numpy(cur), torch.from_numpy(prev)
-    got = rejection.second_order_sample(
-        port, jax_phase_draws(key), tc, tp, port.gather_rows(tc), port.gather_rows(tp),
-        p, q, False, torch.from_numpy(active),
-    )
-    assert 0 < rejection.last_sweeps < rejection.SWEEP_CAP
+    with trace.job("pecanpy.test.sample"):
+        got = rejection.second_order_sample(
+            port, jax_phase_draws(key), tc, tp, port.gather_rows(tc), port.gather_rows(tp),
+            p, q, False, torch.from_numpy(active),
+        )
+    sweeps = trace.last_job("pecanpy.test.sample").counter("walk.sweeps")
+    assert 0 < sweeps < rejection.SWEEP_CAP
     np.testing.assert_array_equal(got.numpy()[active], np.asarray(want)[active])
     for c, x in zip(cur[active], got.numpy()[active]):
         assert adj[c, x] != 0, f"non-edge {c}->{x}"
