@@ -32,6 +32,7 @@ replays without the work, so a resumed run ends bit-identical to an
 uninterrupted one.
 """
 import dataclasses
+import functools
 import time
 from collections import deque
 from typing import Callable, Optional
@@ -206,6 +207,31 @@ def _stripe_bases(k_neg: int, bt: int, m_pool: int) -> list:
     return bases
 
 
+@functools.lru_cache(maxsize=16)
+def _stripe_bases_tensor(k_neg: int, bt: int, m_pool: int, device) -> torch.Tensor:
+    """``_stripe_bases`` as a [K] int64 tensor on ``device``, built once a
+    shape. Each element is written by a fill, so building it copies
+    nothing from host memory and waits on nothing."""
+    out = torch.empty(k_neg, dtype=torch.int64, device=device)
+    for k, b in enumerate(_stripe_bases(k_neg, bt, m_pool)):
+        out[k].fill_(b)
+    return out
+
+
+def _device_offset(pool_off: int, device) -> torch.Tensor:
+    """A step's pool offset as the body takes it: a 0-dim int64 tensor on
+    ``device``, written by a fill (no copy from host memory)."""
+    return torch.full((), pool_off, dtype=torch.int64, device=device)
+
+
+def _roll_left(x: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
+    """``torch.roll(x, -off)`` for a 1-D ``x`` and a 0-dim device tensor
+    ``off`` in [0, len(x)): a gather, so the offset is read on the device
+    and never on the host."""
+    n = x.shape[0]
+    return x[(torch.arange(n, device=x.device) + off) % n]
+
+
 def _uses_pool(config: SGNSConfig, bt: int) -> bool:
     """Does a chunk of ``bt`` tokens draw its negatives from the pool?"""
     return bool(config.neg_pool) and bt * config.negative > config.neg_pool
@@ -291,7 +317,8 @@ def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((rows,) + tuple(x.shape[1:]))])
 
 
-def make_step_body(num_nodes: int, config: SGNSConfig, model_group=None, data_group=None):
+def make_step_body(num_nodes: int, config: SGNSConfig, model_group=None, data_group=None,
+                   *, _graph: bool = True):
     """Build the per-chunk training step.
 
     ``step(w_in, w_out, walks, eff_len, keep_prob, neg_table, lr, draws)``
@@ -313,7 +340,11 @@ def make_step_body(num_nodes: int, config: SGNSConfig, model_group=None, data_gr
     With both None the step is the single-device one, bit for bit.
 
     Steps 1-4 (the update streams) are the span ``pecanpy.sgns.body``;
-    the two table passes follow it (``ops/apply.py``'s spans).
+    the two table passes follow it (``ops/apply.py``'s spans). On a CUDA
+    device with both groups None, steps 1-4 run as one CUDA graph
+    (``_GraphedBody``), bit-equal to running them op by op; the table
+    passes stay eager. ``_graph=False`` is a test seam that keeps steps
+    1-4 eager there too.
     """
     window = config.window
     k_neg = config.negative
@@ -323,29 +354,24 @@ def make_step_body(num_nodes: int, config: SGNSConfig, model_group=None, data_gr
         else 2.0 * config.window
     )
 
-    def body(w_in, w_out, walks, eff_len, keep_prob, neg_table, draws: StepDraws):
-        """Steps 1-4: (the update streams, the stochastic-rounding seed)."""
+    def body(w_in, w_out, keep_prob, neg_table, walks, eff_len, u_sub, eff_win,
+             neg_slots, pool_off):
+        """Steps 1-4: the update streams. ``u_sub``, ``eff_win`` and
+        ``neg_slots`` are the step's draws, ``pool_off`` its pool offset as
+        a 0-dim int64 tensor on the device."""
         wb, t = walks.shape
         dim = w_in.shape[1]
         dev = walks.device
         ti = torch.arange(t, device=dev)
-        rng_seed = draws.rng_seed
-        if data_group is not None:  # common to the data ranks (bf16 rounding)
-            with trace.sync("pecanpy.sgns.seed_upload"):
-                seed_t = torch.tensor(rng_seed, device=dev)
-            seed_t = data_group.all_reduce(seed_t, "min")
-            with trace.sync("pecanpy.sgns.seed_read"):
-                rng_seed = int(seed_t)
 
         # 1. Subsample: prune dropped tokens, compact each walk left
         #    (kept tokens first, order stable; the keys are distinct).
         in_walk = ti[None, :] < eff_len[:, None]
-        keep = in_walk & (draws.u_sub < keep_prob[walks.long()])
+        keep = in_walk & (u_sub < keep_prob[walks.long()])
         pos = ti.expand(wb, t)
         sort_key = torch.where(keep, pos, pos + t)
         comp = walks.gather(1, torch.argsort(sort_key, dim=1))
         m = keep.sum(dim=1)  # [Wb] compacted lengths
-        eff_win = draws.eff_win
 
         # 2. One row gather per walk token (both tables), upcast to f32.
         comp_l = comp.long()
@@ -362,8 +388,8 @@ def make_step_body(num_nodes: int, config: SGNSConfig, model_group=None, data_gr
         use_pool = _uses_pool(config, bt)
         v_flat = v.reshape(bt, dim)
         if use_pool:
-            pool = neg_table[draws.neg_slots.long()]  # [M]
-            pool_r = torch.roll(pool, -draws.pool_off)
+            pool = neg_table[neg_slots.long()]  # [M]
+            pool_r = _roll_left(pool, pool_off)
             pool_rows = w_out[pool_r.long()].to(torch.float32)  # [M, dim]
             reps = -(-bt // m_pool)
             pad_bt = reps * m_pool - bt
@@ -375,12 +401,11 @@ def make_step_body(num_nodes: int, config: SGNSConfig, model_group=None, data_gr
             neg_logits = torch.einsum("rmd,kmd->krm", v_pad, rolled).reshape(
                 k_neg, reps * m_pool
             )[:, :bt]  # [K, BT]
-            with trace.sync("pecanpy.sgns.bases_upload"):
-                bases_t = torch.tensor(bases, device=dev)
+            bases_t = _stripe_bases_tensor(k_neg, bt, m_pool, dev)
             slot = (bases_t[:, None] + torch.arange(bt, device=dev)[None, :]) % m_pool
             negs = pool_r[slot].T.reshape(wb, t, k_neg)  # ids (collisions)
         else:
-            negs = neg_table[draws.neg_slots.long()]  # [Wb, T, K]
+            negs = neg_table[neg_slots.long()]  # [Wb, T, K]
             u_neg = w_out[negs.long()].to(torch.float32)  # [Wb, T, K, dim]
             neg_logits = torch.einsum("btd,btkd->btk", v, u_neg)
         if model_group is not None:  # partial dots over the dim slices
@@ -445,13 +470,29 @@ def make_step_body(num_nodes: int, config: SGNSConfig, model_group=None, data_gr
         ]
         if data_group is not None:  # the full stream on every data rank
             streams = [data_group.all_gather(x) for x in streams]
-        return streams, rng_seed
+        return streams
+
+    graphed = (
+        _GraphedBody(body) if _graph and model_group is None and data_group is None
+        else None
+    )
 
     def step(w_in, w_out, walks, eff_len, keep_prob, neg_table, lr,
              draws: StepDraws):
         with trace.span("pecanpy.sgns.body"):
-            streams, rng_seed = body(w_in, w_out, walks, eff_len, keep_prob, neg_table,
-                                     draws)
+            rng_seed = draws.rng_seed
+            if data_group is not None:  # common to the data ranks (bf16 rounding)
+                with trace.sync("pecanpy.sgns.seed_upload"):
+                    seed_t = torch.tensor(rng_seed, device=walks.device)
+                seed_t = data_group.all_reduce(seed_t, "min")
+                with trace.sync("pecanpy.sgns.seed_read"):
+                    rng_seed = int(seed_t)
+            tables = (w_in, w_out, keep_prob, neg_table)
+            inputs = (walks, eff_len, draws.u_sub, draws.eff_win, draws.neg_slots)
+            if graphed is not None and walks.device.type == "cuda":
+                streams = graphed(tables, inputs, draws.pool_off)
+            else:
+                streams = body(*tables, *inputs, _device_offset(draws.pool_off, walks.device))
         ids_tok, dv_f, cnt_v_f, du_f, cnt_u_f, negs_flat, du_neg_flat, c_v_flat = streams
         apply_mean_updates(
             w_in, ids_tok, dv_f, cnt_v_f, lr, cap=cap, rng_seed=rng_seed,
@@ -464,6 +505,78 @@ def make_step_body(num_nodes: int, config: SGNSConfig, model_group=None, data_gr
         return w_in, w_out
 
     return step
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device) -> "torch.cuda.Stream":
+    """The side stream every capture on ``device`` records on. One stream
+    a device: cuBLAS keeps a workspace per stream, allocated at the first
+    capture on it from that graph's pool, so a new stream for each
+    capture would leave a workspace behind with each graph."""
+    return torch.cuda.Stream(device)
+
+
+class _GraphedBody:
+    """The SGNS step body replayed from one captured CUDA graph.
+
+    The body is some 300 small ops a step, so op by op the host's launches
+    set its pace; a graph replay launches them all at once. The first
+    call under a key runs the body eagerly (it warms up cuBLAS, the
+    allocator and the cached stripe bases), the second captures it, and
+    that call and every later one copy their inputs into the graph's
+    static tensors and replay it. The body only reads the tables, so
+    capturing it changes nothing, and a replay gives the eager streams
+    bit for bit.
+
+    The key is what a capture bakes in: the addresses, shapes and dtypes
+    of the tensors the graph reads in place (the tables, ``keep_prob``,
+    the negative table) and the shapes and dtypes of the inputs it copies
+    (``_run_buffer`` pads every buffer to whole chunks, so a run keeps
+    one). A new key drops the graph and starts over with an eager call.
+    The graph and its memory pool go with this object, i.e. with the
+    step closure that holds it. Counters: ``sgns.graph_captures``,
+    ``sgns.graph_replays`` (chunk-steps whose body was a replay).
+
+    The capture calls ``CUDAGraph.capture_begin`` / ``capture_end`` itself
+    and not ``torch.cuda.graph``, whose entry synchronizes the device and
+    empties the allocator's cache: a blocking sync in every call, and
+    fresh device allocations for the steps after it. Nothing in a
+    chunk-step, capture included, waits on the device.
+    """
+
+    def __init__(self, body):
+        self.body = body
+        self.key = None
+        self.graph = None
+        self.static = None  # the copied inputs, then the pool offset
+        self.streams = None
+
+    def __call__(self, tables, inputs, pool_off: int):
+        key = tuple((t.data_ptr(), t.shape, t.stride(), t.dtype) for t in tables) + tuple(
+            (t.shape, t.dtype) for t in inputs)
+        if key != self.key:
+            self.graph = self.static = self.streams = None
+            self.key = key
+            return self.body(*tables, *inputs, _device_offset(pool_off, inputs[0].device))
+        if self.graph is None:
+            device = inputs[0].device
+            self.static = [t.clone() for t in inputs] + [_device_offset(pool_off, device)]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(_capture_stream(device)):
+                graph.capture_begin()
+                try:
+                    self.streams = self.body(*tables, *self.static)
+                finally:
+                    graph.capture_end()
+            self.graph = graph
+            trace.count("sgns.graph_captures")
+        else:
+            for dst, src in zip(self.static, inputs):
+                dst.copy_(src)
+            self.static[-1].fill_(pool_off)
+        self.graph.replay()
+        trace.count("sgns.graph_replays")
+        return self.streams
 
 
 def _chunk_lrs(config, eff_sums, done_tokens, total_tokens):

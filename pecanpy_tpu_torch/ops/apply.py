@@ -93,11 +93,10 @@ def _sorted_scales(keys_s, cnt_s, lr, cap: Cap):
     ).values.flip(0)
     tot = seg_hi - seg_lo
     if isinstance(cap, torch.Tensor):
-        cap = cap.to(device=tot.device, dtype=torch.float32)
-    else:
-        with trace.sync("pecanpy.apply.cap_upload"):
-            cap = torch.as_tensor(cap, dtype=torch.float32, device=tot.device)
-    return lr * torch.minimum(tot, cap) / torch.clamp(tot, min=_EPS)
+        capped = torch.minimum(tot, cap.to(device=tot.device, dtype=torch.float32))
+    else:  # a kernel argument: no copy from host memory, no wait
+        capped = torch.clamp(tot, max=cap)
+    return lr * capped / torch.clamp(tot, min=_EPS)
 
 
 # -- stochastic rounding bits (the kernel's counter-based hash) ------------

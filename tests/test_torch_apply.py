@@ -133,6 +133,17 @@ def test_sorted_scales_equal_jax(rng):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("cap", [4.0, 20.0, 0.1, 7.3])
+def test_sorted_scales_float_cap_equals_tensor_cap(rng, cap):
+    """A float cap (a kernel argument) scales bit for bit as the same cap
+    uploaded as a float32 tensor."""
+    keys = np.sort(rng.integers(0, 60, 800)).astype(np.int32)
+    cnt = rng.integers(0, 31, 800).astype(np.float32)
+    got = apply_lib._sorted_scales(T(keys), T(cnt), 0.025, cap)
+    want = apply_lib._sorted_scales(T(keys), T(cnt), 0.025, torch.tensor(cap))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def _fmix32_py(h):
     h ^= h >> 16
     h = (h * 0x85EBCA6B) & 0xFFFFFFFF

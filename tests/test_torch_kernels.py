@@ -1009,3 +1009,131 @@ def test_trial_route_off_under_edge(cuda):
                                   for f in dataclasses.fields(card)},
                                global_nodes=card.num_nodes, group=group)
     assert not rejection.use_trial_kernels(False, sharded)
+
+
+# -- the SGNS step body as a CUDA graph -------------------------------------------
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _sgns_inputs(cuda, neg_pool, dtype, n=3000, dim=64, wb=64, t=21, steps=20):
+    """A step's config, ``steps`` chunks of walks, the vocabulary and a
+    table factory (fresh tables from one seed on each call)."""
+    from pecanpy_tpu_torch.models import sgns
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(11)
+    config = sgns.SGNSConfig(dim=dim, window=5, negative=5, neg_pool=neg_pool, seed=3)
+    walks = torch.randint(0, n, (steps * wb, t), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    eff = torch.randint(1, t + 1, (steps * wb,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    counts = sgns._count_tokens(walks, eff, n)
+    keep = sgns._keep_probs(counts, config.sample)
+    neg_table = torch.from_numpy(
+        sgns.build_negative_table(counts.cpu().numpy(), size=1 << 16, seed=3)).to(cuda)
+
+    def tables():
+        return sgns.init_tables(3, n, dim, dtype, cuda)
+
+    return config, walks, eff, keep, neg_table, tables
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("neg_pool", [4096, 0])  # the pool branch, direct negatives
+def test_graphed_step_body_byte_equal_to_eager(cuda, neg_pool, dtype):
+    """20 chunk-steps through the graph and through the eager seam: both
+    tables byte-equal after every step, one capture and 19 replays, and no
+    host-device sync in a replayed chunk-step (its draws included)."""
+    from pecanpy_tpu_torch.models import sgns
+    from pecanpy_tpu_torch.utils import trace
+
+    wb, t, n = 64, 21, 3000
+    config, walks, eff, keep, neg_table, tables = _sgns_inputs(cuda, neg_pool, dtype)
+    assert sgns._uses_pool(config, wb * t) == bool(neg_pool)
+    graphed, eager = sgns.make_step_body(n, config), sgns.make_step_body(n, config, _graph=False)
+    t_graph, t_eager = tables(), tables()
+    with trace.job("pecanpy.test_graph"):
+        for i in range(20):
+            sl, lr = slice(i * wb, (i + 1) * wb), 0.025 * (1 - i / 40)
+            if i >= 2:  # after the eager warm-up and the capture
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                draws = sgns.draw_step(3, i, wb, t, config, neg_table.shape[0], cuda)
+                graphed(*t_graph, walks[sl], eff[sl], keep, neg_table, lr, draws)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            eager(*t_eager, walks[sl], eff[sl], keep, neg_table, lr, draws)
+            for got, want in zip(t_graph, t_eager):
+                assert torch.equal(_bits(got), _bits(want)), i
+    rec = trace.last_job("pecanpy.test_graph")
+    assert rec.counter("sgns.graph_captures") == 1
+    assert rec.counter("sgns.graph_replays") == 19
+    assert not torch.equal(_bits(t_graph[1]), _bits(tables()[1]))  # the steps moved W_out
+
+
+def test_graphed_step_body_recaptures_on_new_tables(cuda):
+    """Tables at another address change the key: an eager step, then a new
+    capture, each step byte-equal to the eager seam on the same tables."""
+    from pecanpy_tpu_torch.models import sgns
+    from pecanpy_tpu_torch.utils import trace
+
+    wb, t, n = 64, 21, 3000
+    config, walks, eff, keep, neg_table, tables = _sgns_inputs(
+        cuda, 4096, torch.bfloat16, steps=6)
+    graphed, eager = sgns.make_step_body(n, config), sgns.make_step_body(n, config, _graph=False)
+    first = (tables(), tables())
+    second = tuple((a.clone(), b.clone()) for a, b in first)
+    with trace.job("pecanpy.test_graph"):
+        for i in range(6):
+            t_graph, t_eager = first if i < 3 else second
+            sl = slice(i * wb, (i + 1) * wb)
+            draws = sgns.draw_step(3, i, wb, t, config, neg_table.shape[0], cuda)
+            graphed(*t_graph, walks[sl], eff[sl], keep, neg_table, 0.025, draws)
+            eager(*t_eager, walks[sl], eff[sl], keep, neg_table, 0.025, draws)
+            for got, want in zip(t_graph, t_eager):
+                assert torch.equal(_bits(got), _bits(want)), i
+    rec = trace.last_job("pecanpy.test_graph")
+    # steps 0-2 on the first tables: eager, capture, replay; 3-5 on the
+    # second: eager, capture, replay
+    assert rec.counter("sgns.graph_captures") == 2
+    assert rec.counter("sgns.graph_replays") == 4
+
+
+def test_graphed_embed_frees_its_graph(cuda, monkeypatch):
+    """Two ``embed`` calls back to back leave the card's allocated memory
+    within a few MB of one call's (the graph and its pool go with the
+    step), each call captures once, and the embeddings are byte-equal to
+    the eager seam's."""
+    import gc
+
+    from pecanpy_tpu_torch import pecanpy
+    from pecanpy_tpu_torch.models import sgns
+    from pecanpy_tpu_torch.utils import trace
+
+    n = 2000
+    adj = (np.random.default_rng(9).random((n, n)) < 0.004).astype(float)
+    adj = np.maximum(adj, adj.T)
+    np.fill_diagonal(adj, 0)
+    adj[np.arange(n), (np.arange(n) + 1) % n] = adj[(np.arange(n) + 1) % n, np.arange(n)] = 1.0
+    g = pecanpy.SparseOTF.from_mat(adj, [str(i) for i in range(n)], p=0.5, q=2.0,
+                                   random_state=5, device=cuda)
+    # 128 walks of 81 tokens a chunk-step: 10,368 x 5 negatives take the pool
+    kw = dict(dim=64, num_walks=2, walk_length=80, window_size=5, batch_walks=128,
+              table_dtype="bfloat16")
+    allocated = []
+    for _ in range(2):
+        out = g.embed(**kw)
+        assert trace.last_job("pecanpy.embed").counter("sgns.graph_captures") == 1
+        gc.collect()
+        torch.cuda.synchronize()
+        allocated.append(torch.cuda.memory_allocated(cuda))
+    assert abs(allocated[1] - allocated[0]) <= 4 << 20, allocated
+    make = sgns.make_step_body
+    monkeypatch.setattr(sgns, "make_step_body",
+                        lambda *a, **k: make(*a, **k, _graph=False))
+    eager = g.embed(**kw)
+    assert trace.last_job("pecanpy.embed").counter("sgns.graph_replays") == 0
+    assert eager.tobytes() == out.tobytes()

@@ -8,6 +8,7 @@ and reductions in another order); a few chunk-steps rtol=1e-4, atol=1e-6
 (the same differences, compounded over steps).
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -83,6 +84,69 @@ def test_step_matches_jax(rng, neg_pool):
     for got, ref in zip((t_in, t_out), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
     assert not np.allclose(t_out.numpy(), w_out)  # the step did move W_out
+
+
+@pytest.mark.parametrize("off", [0, 1, 63])  # 0, 1 and M - 1
+def test_roll_left_is_torch_roll(off):
+    pool = torch.from_numpy(np.random.default_rng(off).integers(0, 1000, 64))
+    assert torch.equal(sgns._roll_left(pool, torch.tensor(off)), torch.roll(pool, -off))
+
+
+@pytest.mark.parametrize("k,bt,m", [(5, 100035, 32768), (5, 32768, 32768), (5, 40, 32),
+                                    (3, 7, 8), (6, 5, 4)])
+def test_cached_stripe_bases_are_stripe_bases(k, bt, m):
+    got = sgns._stripe_bases_tensor(k, bt, m, torch.device("cpu"))
+    assert got.dtype == torch.int64
+    assert got.tolist() == sgns._stripe_bases(k, bt, m)
+    assert sgns._stripe_bases_tensor(k, bt, m, torch.device("cpu")) is got
+
+
+@pytest.mark.parametrize("groups", [False, True])
+def test_cpu_and_group_steps_stay_eager(rng, monkeypatch, groups):
+    """A step on CPU tables, or with collective groups, never goes through
+    a graph (both graph counters stay 0); one-rank groups whose
+    collectives return their input give the single-device step's bits."""
+    from pecanpy_tpu_torch.utils import trace
+
+    made = []
+
+    class NoGraph:
+        def __init__(self, body):
+            made.append(body)
+
+        def __call__(self, *args):
+            raise AssertionError("the step went through a graph")
+
+    n, dim, wb, t = 40, 16, 6, 12
+    config = sgns.SGNSConfig(dim=dim, window=3, negative=4, neg_pool=64, seed=1)
+    walks = T(rng.integers(0, n, (wb, t)).astype(np.int32))
+    eff = T(np.array([12, 12, 7, 1, 12, 4], dtype=np.int32))
+    keep = T(rng.uniform(0.5, 1.0, n).astype(np.float32))
+    neg_table = T(rng.integers(0, n, 512).astype(np.int32))
+    init = [(rng.standard_normal((n, dim)) * 0.1).astype(np.float32) for _ in range(2)]
+    draws = sgns.draw_step(1, 0, wb, t, config, 512, "cpu")
+    assert sgns._uses_pool(config, wb * t)
+
+    def run(**kw):
+        tables = sgns.tables_from_numpy(*init, "cpu")
+        with trace.job("pecanpy.test_step"):
+            sgns.make_step_body(n, config, **kw)(*tables, walks, eff, keep, neg_table,
+                                                 0.02, draws)
+        rec = trace.last_job("pecanpy.test_step")
+        assert rec.counter("sgns.graph_captures") == rec.counter("sgns.graph_replays") == 0
+        return tables
+
+    want = run()
+    monkeypatch.setattr(sgns, "_GraphedBody", NoGraph)
+    if groups:
+        solo = types.SimpleNamespace(all_reduce=lambda x, op="sum": x, all_gather=lambda x: x)
+        got = run(model_group=solo, data_group=solo)
+        assert made == []  # no graph is even built with a group
+    else:
+        got = run()
+        assert len(made) == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def _two_cliques(k=8):
