@@ -8,8 +8,11 @@ prints one JSON line of readings:
 
 * walk cells: one call of the entry judged as a run judges it (the
   program's readings), then the control: the same call with the program
-  walking at q = 1 where the configuration states q = 2, judged by the
-  configuration's law;
+  walking at q = 1 where the configuration states another q (2, or 0.5),
+  judged by the configuration's law; for a node2vec+ configuration
+  (``extend``) also ``control_node2vec``: the same call walked as
+  node2vec (``extend`` off) at the same p and q, judged by node2vec+'s
+  law;
 * embed cells: the warm-up's first chunk-steps judged as a run judges
   them (the program's readings), then, on the first ``--control-seeds``
   seeds, the control: the plain reference in the program's place with
@@ -52,24 +55,25 @@ def main(argv):
         out = {"cell": cell.name, "seed": seed}
         check_seed = runner.derived_seed(seed, 4)
         if traffic["entry"] == "walks":
-            walks, eff = entry.call(runner.derived_seed(seed, 2, 0))
-            do_control = k < args.control_seeds
-            if do_control:
+            call_seed = runner.derived_seed(seed, 2, 0)
+            judged = {"program": entry.call(call_seed)}
+            if k < args.control_seeds:
                 mode.q = 1.0
-                c_walks, c_eff = entry.call(runner.derived_seed(seed, 2, 0))
+                judged["control"] = entry.call(call_seed)
                 mode.q = cfg["q"]
+                if cfg.get("extend", False):
+                    mode.extend = False
+                    judged["control_node2vec"] = entry.call(call_seed)
+                    mode.extend = True
             entry.release()
             mode._device_graph = None
             torch.cuda.empty_cache() if device.type == "cuda" else None
             g = walklaw.RefGraph(*graph, device)
-            out["program"] = check.walk_numbers(g, walks, eff, cfg["num_walks"], cfg["p"],
-                                                cfg["q"], traffic["check"]["law_steps"],
-                                                check_seed)
-            del walks, eff
-            if do_control:
-                out["control"] = check.walk_numbers(
-                    g, c_walks, c_eff, cfg["num_walks"], cfg["p"], cfg["q"],
-                    traffic["check"]["law_steps"], check_seed)
+            for name in list(judged):
+                walks, eff = judged.pop(name)
+                out[name] = check.walk_numbers(g, walks, eff, cfg,
+                                               traffic["check"]["law_steps"], check_seed)
+                del walks, eff
         else:
             mode._device_graph = None
             torch.cuda.empty_cache() if device.type == "cuda" else None

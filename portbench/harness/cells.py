@@ -4,7 +4,8 @@ Everything that belongs to one configuration, traffic mix, graph
 generator or per-layer metric is a file of its own, found by name:
 
 * ``configs/<config>.json``: the graph generator and its parameters, the
-  mode, p and q, the job's sizes, ``source``, ``reduced`` and ``assumed``;
+  mode, p and q (for node2vec+ also ``extend`` and ``gamma``), the job's
+  sizes, ``source``, ``reduced`` and ``assumed``;
 * ``traffic/<traffic>.json``: the entry (``embed`` or ``walks``) the
   window drives, its warm-up and its check's sample sizes;
 * ``graphs/<generator>.py``: ``generate(seed, device=..., **params)`` -> CSR triple;

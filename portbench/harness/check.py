@@ -4,7 +4,9 @@ Walks (every cell): every walk of the judged call is held to the graph
 (``walk_faults``: a step that is no edge, a stop at a node with
 neighbours, a length out of range), every node starts ``num_walks`` of
 them (``start_faults``), and a seeded sample of their steps is held to
-node2vec's law (``law_z``: the largest |z| of ``reference.walklaw``).
+the configuration's law (``law_z``: the largest |z| of
+``reference.walklaw``): node2vec's, or node2vec+'s where the
+configuration sets ``extend`` (with its ``gamma``).
 
 Training (embed cells): the set-up's warm-up ``embed(max_steps=3)`` runs
 the window's own entry at the timed sizes; the plain reference follows
@@ -32,11 +34,13 @@ import torch
 from reference import sgns_steps, walklaw
 
 
-def walk_numbers(g: walklaw.RefGraph, walks, eff, num_walks, p, q, law_steps, seed):
-    z, _ = walklaw.law_z(g, walks, eff, p, q, law_steps, seed)
+def walk_numbers(g: walklaw.RefGraph, walks, eff, cfg, law_steps, seed):
+    """The walk numbers of ``walks`` under the configuration ``cfg``'s law."""
+    z, _ = walklaw.law_z(g, walks, eff, cfg["p"], cfg["q"], law_steps, seed,
+                         extend=cfg.get("extend", False), gamma=cfg.get("gamma", 0.0))
     out = {
         "walk_faults": walklaw.check_walks(g, walks, eff),
-        "start_faults": walklaw.check_starts(g, walks, num_walks),
+        "start_faults": walklaw.check_starts(g, walks, cfg["num_walks"]),
         "law_z": max(abs(v) for v in z.values()),
     }
     out.update({f"z_{k}": v for k, v in z.items()})
@@ -91,8 +95,7 @@ def embed_numbers(g, cfg, traffic, seed, warm, window_last, device, h=None):
     chunks = warm["chunks"]
     walks = torch.cat([w for w, _ in chunks])
     eff = torch.cat([e for _, e in chunks])
-    out = walk_numbers(g, walks, eff, cfg["num_walks"], cfg["p"], cfg["q"],
-                       traffic["check"]["law_steps"], seed)
+    out = walk_numbers(g, walks, eff, cfg, traffic["check"]["law_steps"], seed)
     del walks, eff
     stored = warm["states"][0][0].dtype
     ref_states, ref_losses, aux = sgns_steps.follow(

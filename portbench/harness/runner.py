@@ -60,7 +60,8 @@ def set_up(cell, seed: int, device, diag: dict):
                                             device=device)
     diag["graph_s"] = time.perf_counter() - t0
     indptr, indices, data = graph
-    mode = getattr(pecanpy, cfg["mode"])(p=cfg["p"], q=cfg["q"], device=device)
+    mode = getattr(pecanpy, cfg["mode"])(p=cfg["p"], q=cfg["q"], extend=cfg.get("extend", False),
+                                         gamma=cfg.get("gamma", 0.0), device=device)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="portbench-") as tmp:
         path = os.path.join(tmp, "graph.csr.npz")
@@ -160,8 +161,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device_name: str, t_s
     check_seed = derived_seed(seed, 4)
     if traffic["entry"] == "walks":
         walks, eff = last
-        numbers = check.walk_numbers(g, walks, eff, cfg["num_walks"], cfg["p"], cfg["q"],
-                                     traffic["check"]["law_steps"], check_seed)
+        numbers = check.walk_numbers(g, walks, eff, cfg, traffic["check"]["law_steps"],
+                                     check_seed)
     else:
         numbers = check.embed_numbers(g, cfg, traffic, check_seed, warm, last, device)
     diag["check_s"] = time.perf_counter() - t0

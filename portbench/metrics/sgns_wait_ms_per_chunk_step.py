@@ -1,13 +1,13 @@
 """sgns_wait_ms_per_chunk_step: host milliseconds one SGNS chunk-step
 spends blocked in syncs: the ``wait_ns`` of the port's span
-``pecanpy.sgns.chunk_step`` (the time of the ``sync`` spans nested in it:
-the negative pool's stripe bases and the applier's cap, each a copy from
-pageable host memory that drains the queue) over its count, in the
-traced window's jobs (``_port_trace.window_jobs``).
+``pecanpy.sgns.chunk_step`` (the time of the ``sync`` spans nested in it)
+over its count, in the traced window's jobs (``_port_trace.window_jobs``).
+The chunk-step holds no sync on the port's path, so the metric reads 0
+unless a change brings one into the step.
 
 What the traced window does to it: the harness synchronizes before and
-after each training buffer, so the syncs of a buffer's first chunk-step
-wait on an empty queue; every later step's wait is the untraced one.
+after each training buffer, so a sync in a buffer's first chunk-step
+would wait on an empty queue; every later step's wait is the untraced one.
 """
 from harness import cells
 

@@ -11,10 +11,21 @@ x proportional to w(cur, x) * alpha(x), alpha = 1/p for x == prev, 1 for
 x a neighbour of prev, 1/q otherwise. A walk stops early only at a node
 without neighbours.
 
+node2vec+ (``extend``; Liu, Hirn & Krishnan, Bioinformatics 2023, arXiv
+2109.08031, as PecanPy's ``get_extended_normalized_probs`` publishes it)
+changes alpha for x != prev. Each node has a noise threshold, the mean of
+its edge weights plus gamma times their population standard deviation,
+clipped at 0. x is "out" if it is no neighbour of prev, or if w(prev, x)
+< thr(x) (a loose common neighbour); it then takes 1/q + (1 - 1/q) *
+w(prev, x) / thr(x), with w(prev, x) = 0 for a non-neighbour, or
+min(1, 1/q) where the out edge is noisy: w(cur, x) < thr(cur). Every
+other x takes 1. The first step is first-order as above.
+
 ``law_z`` holds a sample of the walks' steps to that law. For each test
 function f of a step (a return to prev, a move to a common neighbour of
-prev, a move out, the weight of the edge taken) the sum over the sample
-of f(observed) - E[f] is a martingale under the law, so
+prev, a move out, the weight of the edge taken; under node2vec+ also a
+move along a noisy out edge, the rule that sets it apart) the sum over
+the sample of f(observed) - E[f] is a martingale under the law, so
 z_f = that sum / sqrt(sum of Var[f]) is close to a standard normal for
 walks drawn from the law, and grows with the sample for walks drawn from
 another law.
@@ -23,6 +34,7 @@ import numpy as np
 import torch
 
 STAT_NAMES = ("return", "common", "out", "weight", "first_weight")
+PLUS_STAT = "noisy_out"  # node2vec+ only
 
 
 class RefGraph:
@@ -41,6 +53,18 @@ class RefGraph:
         self.deg = torch.from_numpy(deg).to(device)
         self.indptr = torch.from_numpy(indptr).to(device)
         self.device = device
+
+    def thresholds(self, gamma: float) -> torch.Tensor:
+        """[n] float64 node2vec+ noise thresholds: the mean of each node's
+        edge weights plus ``gamma`` times their population standard
+        deviation, clipped at 0 (0 for a node without edges)."""
+        f64 = dict(dtype=torch.float64, device=self.device)
+        node = torch.repeat_interleave(torch.arange(self.n, device=self.device), self.deg)
+        deg = torch.clamp(self.deg, min=1).to(torch.float64)
+        mean = torch.zeros(self.n, **f64).index_add_(0, node, self.wgt) / deg
+        var = torch.zeros(self.n, **f64).index_add_(0, node, (self.wgt - mean[node]) ** 2)
+        thr = torch.clamp(mean + gamma * torch.sqrt(var / deg), min=0.0)
+        return torch.where(self.deg > 0, thr, 0.0)
 
     def lookup(self, a: torch.Tensor, b: torch.Tensor):
         """(is an edge a -> b, its weight or 0) for int64 node tensors."""
@@ -94,12 +118,29 @@ def sample_steps(walks: torch.Tensor, eff: torch.Tensor, size: int, seed: int):
     return rows, pos
 
 
-def _stats(g: RefGraph, prev, cur, nxt, p, q, first, max_pairs):
+def _plus_bias(w, wpx, common, thr_x, thr_cur, q):
+    """node2vec+'s alpha of candidates x that are not prev, and whether
+    each is a noisy out edge: ``w`` = w(cur, x), ``wpx`` = w(prev, x) (0
+    where ``common`` is false), thresholds of x and of cur."""
+    loose = common & (wpx < thr_x)
+    out = ~common | loose
+    t = torch.where(loose, wpx / torch.clamp(thr_x, min=1e-300), 0.0)
+    inv_q = 1.0 / q
+    noisy = out & (w < thr_cur)
+    alpha = torch.where(noisy, min(1.0, inv_q),
+                        torch.where(out, inv_q + (1.0 - inv_q) * t, 1.0))
+    return alpha, noisy
+
+
+def _stats(g: RefGraph, prev, cur, nxt, p, q, first, max_pairs, thr=None):
     """Per sampled step: observed f and E[f], Var[f] under the law, for
-    each test function; (obs [S, F], mean [S, F], var [S, F])."""
+    each test function; (obs [S, F], mean [S, F], var [S, F]). ``thr``:
+    the nodes' thresholds for node2vec+'s law (F = 5, the last column a
+    move along a noisy out edge), or None for node2vec's (F = 4)."""
     s = cur.numel()
     dev = g.device
-    f_obs = torch.zeros((s, 4), dtype=torch.float64, device=dev)
+    nf = 4 if thr is None else 5
+    f_obs = torch.zeros((s, nf), dtype=torch.float64, device=dev)
     m1 = torch.zeros_like(f_obs)
     m2 = torch.zeros_like(f_obs)
     z = torch.zeros(s, dtype=torch.float64, device=dev)
@@ -120,14 +161,20 @@ def _stats(g: RefGraph, prev, cur, nxt, p, q, first, max_pairs):
         x, w = g.col[e], g.wgt[e]
         pv = prev[step]
         is_ret = (x == pv) & ~first[step]
-        common, _ = g.lookup(pv, x)
+        common, wpx = g.lookup(pv, x)
         is_common = common & ~is_ret & ~first[step]
         is_out = ~is_ret & ~is_common & ~first[step]
-        alpha = torch.where(first[step], 1.0, torch.where(is_ret, 1.0 / p, torch.where(
-            is_common, 1.0, 1.0 / q)))
+        cols = [is_ret.double(), is_common.double(), is_out.double(), w]
+        if thr is None:
+            alpha = torch.where(first[step], 1.0, torch.where(is_ret, 1.0 / p, torch.where(
+                is_common, 1.0, 1.0 / q)))
+        else:
+            plus, noisy = _plus_bias(w, wpx, common, thr[x], thr[cur[step]], q)
+            alpha = torch.where(first[step], 1.0, torch.where(is_ret, 1.0 / p, plus))
+            cols.append((noisy & ~is_ret & ~first[step]).double())
         pw = w * alpha
         z.index_add_(0, step, pw)
-        fs = torch.stack([is_ret.double(), is_common.double(), is_out.double(), w], 1)
+        fs = torch.stack(cols, 1)
         m1.index_add_(0, step, pw[:, None] * fs)
         m2.index_add_(0, step, pw[:, None] * fs * fs)
         lo = hi
@@ -136,19 +183,26 @@ def _stats(g: RefGraph, prev, cur, nxt, p, q, first, max_pairs):
     var = torch.clamp(m2 - m1 * m1, min=0.0)
     found, w_obs = g.lookup(cur, nxt)
     ret_obs = (nxt == prev) & ~first
-    common_obs, _ = g.lookup(prev, nxt)
-    common_obs = common_obs & ~ret_obs & ~first
+    common_prev, wpx_obs = g.lookup(prev, nxt)
+    common_obs = common_prev & ~ret_obs & ~first
     out_obs = ~ret_obs & ~common_obs & ~first
-    f_obs = torch.stack([ret_obs.double(), common_obs.double(), out_obs.double(), w_obs], 1)
+    cols = [ret_obs.double(), common_obs.double(), out_obs.double(), w_obs]
+    if thr is not None:
+        _, noisy = _plus_bias(w_obs, wpx_obs, common_prev, thr[nxt.clamp(0, g.n - 1)],
+                              thr[cur], q)
+        cols.append((noisy & ~ret_obs & ~first).double())
+    f_obs = torch.stack(cols, 1)
     return f_obs, m1, var, found
 
 
 def law_z(g: RefGraph, walks: torch.Tensor, eff: torch.Tensor, p: float, q: float,
-          size: int, seed: int, max_pairs: int = 1 << 25):
+          size: int, seed: int, max_pairs: int = 1 << 25, extend: bool = False,
+          gamma: float = 0.0):
     """{stat: z} over ``size`` sampled steps of ``walks``, and the number
     of sampled steps that are not edges. ``first_weight`` holds the first
-    steps (no prev) to the first-order law; the other four hold the later
-    steps to the second-order law."""
+    steps (no prev) to the first-order law; the others hold the later
+    steps to the second-order law: node2vec's, or with ``extend``
+    node2vec+'s under ``gamma``, which adds ``noisy_out``."""
     rows, pos = sample_steps(walks, eff, size, seed)
     rows_t = torch.from_numpy(rows).to(g.device)
     pos_t = torch.from_numpy(pos).to(g.device)
@@ -157,10 +211,12 @@ def law_z(g: RefGraph, walks: torch.Tensor, eff: torch.Tensor, p: float, q: floa
     cur = w[rows_t, pos_t - 1].long()
     first = pos_t == 1
     prev = torch.where(first, cur, w[rows_t, torch.clamp(pos_t - 2, min=0)].long())
-    f_obs, mean, var, found = _stats(g, prev, cur, nxt, p, q, first, max_pairs)
+    thr = g.thresholds(gamma) if extend else None
+    f_obs, mean, var, found = _stats(g, prev, cur, nxt, p, q, first, max_pairs, thr)
     out = {}
     later = ~first
-    for k, name in enumerate(STAT_NAMES[:4]):
+    names = STAT_NAMES[:4] + ((PLUS_STAT,) if extend else ())
+    for k, name in enumerate(names):
         out[name] = _z(f_obs[later, k], mean[later, k], var[later, k])
     out["first_weight"] = _z(f_obs[first, 3], mean[first, 3], var[first, 3])
     return out, int((~found).sum())

@@ -34,7 +34,8 @@ def run(cell, seed=SEED, trace=False):
 
 
 @pytest.mark.parametrize("name,nodes", [("uniform1m.walks", 3000), ("powerlaw1m.walks", 6000),
-                                        ("uniform1m.embed", 2000), ("powerlaw1m.embed", 4000)])
+                                        ("uniform1m.embed", 2000), ("powerlaw1m.embed", 4000),
+                                        ("powerlaw1m.walks_plus", 6000)])
 def test_sound_run_is_correct_and_writes_no_metric(name, nodes, streaming):
     result, diag = run(tiny(name, nodes), trace=name.endswith("embed"))
     assert result["correct"], diag["readings"]
