@@ -283,9 +283,19 @@ class PreComp(_SparseModeBase):
     a step is one edge-row gather and a compare-reduce. Edges of wider
     nodes fall back to the on-the-fly bias on the carried rows, drawing
     with the same uniform (the same law, computed instead of looked up).
-    Memory is E x 64 f32 whatever the degree skew; the guard is
-    E * 64 < 2^31. The first step (no prev) samples the node's
+    Memory is E x w f32 whatever the degree skew, w = min(64, the
+    largest degree rounded up to 8, at most ``dpad``): the bias rows
+    span that many slots (``transition._active_width``); the guard is
+    E * min(64, dpad) < 2^31. The first step (no prev) samples the node's
     first-order CDF channel (``pecanpy.py:412-424``).
+
+    Traced (``utils/trace.py``): the build is the job ``pecanpy.precomp``
+    (a span inside a job), which ends when the table is on the card, with
+    the counters ``precomp.table_bytes`` and ``precomp.build_slices``;
+    each second-order step adds to
+    ``walk.precomp_steps``, ``walk.precomp_lane_steps`` (its lanes) and,
+    where it runs the wide-degree fallback, ``walk.precomp_fallback_steps``.
+    All are host-side counts: none reads the device.
     """
 
     _needs_cdf_channel = True
@@ -300,6 +310,10 @@ class PreComp(_SparseModeBase):
 
     def preprocess_transition_probs(self):
         dg = self.get_device_graph()
+        with trace.job("pecanpy.precomp"):
+            self.edge_cdf = self._build_edge_cdf(dg)
+
+    def _build_edge_cdf(self, dg: DeviceCSR) -> torch.Tensor:
         w = min(self.PRECOMP_WIDTH, dg.dpad)
         with trace.sync("pecanpy.walk.edges_read"):
             e = int(dg.indptr[-1])
@@ -311,7 +325,7 @@ class PreComp(_SparseModeBase):
             )
         kernel = _pick_kernel(self.extend)
         p, q = self.p, self.q
-        edge_cur, slot = _flat_edge_positions(dg)
+        edge_cur, slot = _flat_edge_positions(dg, e)
 
         def build(lo, hi):
             """CDF rows of edges lo..hi-1: the transition distribution out
@@ -337,7 +351,15 @@ class PreComp(_SparseModeBase):
         budget_mb = int(os.environ.get("PECANPY_TPU_PRECOMP_BUILD_MB", "1024"))
         slice_e = max(min(e, (budget_mb << 20) // max(per_edge, 1)), 256)
         parts = [build(lo, min(lo + slice_e, e)) for lo in range(0, max(e, 1), slice_e)]
-        self.edge_cdf = parts[0] if len(parts) == 1 else torch.cat(parts)
+        edge_cdf = parts[0] if len(parts) == 1 else torch.cat(parts)
+        trace.count("precomp.table_bytes", edge_cdf.numel() * edge_cdf.element_size())
+        trace.count("precomp.build_slices", len(parts))
+        # the build is queued far ahead of the card: wait for it, so that
+        # the job's time is the build's and not its dispatch's
+        with trace.sync("pecanpy.precomp.ready"):
+            if edge_cdf.is_cuda:
+                torch.cuda.synchronize(edge_cdf.device)
+        return edge_cdf
 
     def make_step_fns(self):
         kernel = _pick_kernel(self.extend)
@@ -353,6 +375,8 @@ class PreComp(_SparseModeBase):
             return sampling.pick_int_columns(dg.rows_nbr(cur_rows), choice)
 
         def step_fn(dg, u, cur, prev, cur_rows, prev_rows):
+            trace.count("walk.precomp_steps")
+            trace.count("walk.precomp_lane_steps", cur.shape[0])
             cur_nbr = dg.rows_nbr(cur_rows)
             pos = transition.row_searchsorted(cur_nbr, prev[:, None])[:, 0]
             pos = torch.clamp(pos, max=cur_nbr.shape[1] - 1)
@@ -364,6 +388,7 @@ class PreComp(_SparseModeBase):
             if fallback:
                 # wide-degree fallback: the same law, computed on the fly
                 # from the carried rows with the same uniform
+                trace.count("walk.precomp_fallback_steps")
                 weights = kernel(dg, cur_rows, prev_rows, prev, p, q)
                 choice_otf = sampling.categorical_rows(u, weights)
                 deg = transition.row_degrees(dg, cur_rows)
@@ -373,11 +398,9 @@ class PreComp(_SparseModeBase):
         return first_fn, step_fn
 
 
-def _flat_edge_positions(dg: DeviceCSR):
+def _flat_edge_positions(dg: DeviceCSR, e: int):
     """Per-edge (source node, slot of the edge in the node's row), both
-    [E] int64, in CSR edge order."""
-    with trace.sync("pecanpy.walk.edges_read"):
-        e = int(dg.indptr[-1])
+    [E] int64, in CSR edge order; ``e`` is the edge count, already read."""
     dev = dg.fused.device
     edge_cur = torch.repeat_interleave(
         torch.arange(dg.num_nodes, device=dev), dg.deg.long(), output_size=e

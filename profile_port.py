@@ -3,7 +3,8 @@
 
     python3 profile_port.py [--out chiprun_out/profile_port.txt]
                             [--sections walks,sgns,hub,stepsampler,precomp,apply,apply-sweep,
-                                        trial-sweep,quality,multichip,cells,census]
+                                        trial-sweep,quality,multichip,cells,census,
+                                        precomp-table]
                             [--trial-baseline OLD_TRIAL_CU] [--cells CELL,...]
 
 Runs the configurations of ``chip_smoke.py`` (p=0.5, q=2, walks of 80
@@ -66,7 +67,18 @@ steps) and measures these steady-state windows:
 - census: every cell (or ``--cells``), one call under
   ``torch.cuda.set_sync_debug_mode("warn")``: the synchronizing
   operations CUDA reports, by site, against the job's ``syncs`` counter;
-  first the host cost of one span at each tracing level.
+  first the host cost of one span at each tracing level;
+- precomp-table: ``uniform1m.precomp``'s graph from each of
+  ``--table-seeds`` (as a benchmark run makes it from its seed), its
+  PreComp table (the job ``pecanpy.precomp``) held row by row to
+  ``portbench/reference/precomp_table.py``, with the table rounded to
+  bfloat16 as the precision that must fail, the first-order channel
+  too; then one call's walks at the configuration's q, one from the same
+  table rounded to bfloat16, and the control's, the same instance
+  rebuilt at q = 1, all judged by the configuration's law as the
+  benchmark's check judges them (``law_z``). It stands in for a check
+  of the table in ``portbench/``, whose walk check reads walks alone. A
+  JSON line a seed goes to ``precomp_table.jsonl`` beside ``--out``.
 
 Each window is timed twice: on the host clock with a synchronize at each
 end (ms per step, rate), and under ``torch.profiler`` with the port's
@@ -198,7 +210,8 @@ def main():
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "profile_port.txt"))
     ap.add_argument("--sections", default="walks,sgns,hub,precomp",
                     help="comma-separated subset of walks, sgns, hub, stepsampler, precomp, "
-                         "apply, apply-sweep, trial-sweep, quality, multichip, cells, census")
+                         "apply, apply-sweep, trial-sweep, quality, multichip, cells, census, "
+                         "precomp-table")
     ap.add_argument("--apply-lib", help="with --sections apply-lib: time kernel 2.1 "
                     "from this build of the library (the sweep's own processes)")
     ap.add_argument("--trial-baseline", help="with --sections trial-sweep: an earlier "
@@ -207,6 +220,8 @@ def main():
                     help="with --sections cells or census: comma-separated cells of "
                          "BENCHMARK.json (default: uniform1m.embed,powerlaw1m.walks for "
                          "cells, every cell for census)")
+    ap.add_argument("--table-seeds", default="2147483901,2147483902,2147483903",
+                    help="with --sections precomp-table: comma-separated run seeds")
     ap.add_argument("--trial-lib", nargs=3, metavar=("LIB", "INPUTS", "DESIGN"),
                     help="with --sections trial-lib: time the trial kernels of LIB on the "
                     "saved lanes INPUTS; DESIGN is ids or rows (the sweep's own processes)")
@@ -254,6 +269,10 @@ def main():
         if "cells" in sections:
             cells = args.cells or "uniform1m.embed,powerlaw1m.walks"
             profile_cells(out, cells.split(","))
+        if "precomp-table" in sections:
+            precomp_table([int(x) for x in args.table_seeds.split(",")],
+                          os.path.join(os.path.dirname(os.path.abspath(args.out)),
+                                       "precomp_table.jsonl"))
         log(f"[done] op tables in {os.path.relpath(args.out, REPO)}")
 
 
@@ -1090,6 +1109,84 @@ def sync_census(names=None):
         entry.release()
         del mode, entry
         torch.cuda.empty_cache()
+
+
+def precomp_table(seeds, path_out, cell=None, device="cuda:0"):
+    """PreComp's table on the graph of ``cell`` (default
+    ``uniform1m.precomp``), set up as a run sets it up, against the plain
+    reference, and the law of its walks beside those of the table rounded
+    to bfloat16 and of the q = 1 control, for each seed; a JSON line a
+    seed is appended to ``path_out``."""
+    import json
+
+    import torch
+
+    if BENCH_DIR not in sys.path:
+        sys.path.insert(0, BENCH_DIR)
+    from harness import cells, check, entries, runner
+    from pecanpy_tpu_torch.utils import trace
+    from reference import precomp_table as ref_lib
+    from reference import walklaw
+
+    cell = cell or cells.resolve("uniform1m.precomp")
+    cfg = cell.config
+    dev = torch.device(device)
+    os.makedirs(os.path.dirname(os.path.abspath(path_out)), exist_ok=True)
+    for seed in seeds:
+        diag = {}
+        # the warm-up's first chunk builds the table: the job pecanpy.precomp
+        mode, entry, _, (indptr, indices, data) = runner.set_up(cell, seed, dev, diag)
+        job = trace.last_job("pecanpy.precomp")
+        dg, table = mode.get_device_graph(), mode.edge_cdf
+        row = dict(cell=cell.name, seed=seed, set_up=diag, edges=int(indices.size),
+                   max_degree=int(np.diff(indptr).max()), dpad=dg.dpad,
+                   table_shape=list(table.shape), table_bytes=job.counter("precomp.table_bytes"),
+                   build_slices=job.counter("precomp.build_slices"), build_s=job.wall_ns / 1e9,
+                   build_syncs=job.counter(trace.SYNCS))
+
+        # -- the table and the first-order channel against the reference --
+        t0 = time.perf_counter()
+        ref = ref_lib.PrecompReference(indptr, indices, data, cfg["p"], cfg["q"], dev)
+        atol = ref_lib.f32_cdf_atol(ref.max_degree)
+        gap, pad_faults = ref_lib.table_gaps(ref.edge_rows, table)
+        gap16, pad16 = ref_lib.table_gaps(ref.edge_rows, table.to(torch.bfloat16))
+        first = dg.rows_cdf(dg.fused)
+        gap1, pad1 = ref_lib.table_gaps(ref.node_rows, first)
+        gap1_16, _ = ref_lib.table_gaps(ref.node_rows, first.to(torch.bfloat16))
+        row.update(table_gap=gap, table_atol=atol, table_pad_faults=pad_faults,
+                   table_ok=gap <= atol and pad_faults == 0,
+                   bf16_table_gap=gap16, bf16_table_pad_faults=pad16,
+                   bf16_table_fails=gap16 > atol or pad16 > 0,
+                   first_gap=gap1, first_atol=ref_lib.F32_ROUNDED_ATOL, first_pad_faults=pad1,
+                   first_ok=gap1 <= ref_lib.F32_ROUNDED_ATOL and pad1 == 0,
+                   bf16_first_gap=gap1_16, reference_s=time.perf_counter() - t0)
+        del ref, table, first
+
+        # -- the law: a call at the configuration's q, one from the table
+        # rounded to bfloat16, then the control's --
+        g = walklaw.RefGraph(indptr, indices, data, dev)
+        for label, q in (("program", cfg["q"]), ("bf16_table", cfg["q"]), ("control_q1", 1.0)):
+            if label == "bf16_table":
+                mode.edge_cdf = mode.edge_cdf.to(torch.bfloat16).to(torch.float32)
+            elif q != mode.q:
+                mode.q = q
+                mode.preprocess_transition_probs()  # the table built again at q
+            t0 = time.perf_counter()
+            walks, eff = entry.call(runner.derived_seed(seed, 2, 0))
+            entries.sync(dev)
+            call_s = time.perf_counter() - t0
+            numbers = check.walk_numbers(g, walks, eff, cfg, cell.traffic["check"]["law_steps"],
+                                         runner.derived_seed(seed, 4))
+            row[label] = dict(numbers, call_s=call_s, built_at_q=q)
+            entry.release()
+            del walks, eff
+        log(f"[precomp-table] {json.dumps(row)}")
+        with open(path_out, "a") as f:
+            f.write(json.dumps(row) + "\n")
+        mode._device_graph = mode.edge_cdf = None
+        del mode, entry, dg, g
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
