@@ -11,7 +11,9 @@ Counterpart of ``pecanpy_tpu/models/engine.py``:
   per round, ``ops/trialkernel.py``) and let a lane that rejects retry in
   the next round while the others move on. ``lax.while_loop`` becomes a
   Python loop that reads the pending count on the host once per block
-  of rounds, never once per round.
+  of rounds, never once per round. On a card, node2vec+'s blocks (the
+  plain trial block's route) are replays of one captured CUDA graph
+  (``_GraphedRounds``).
 
 The scan engine carries the fused rows of the current AND previous node
 from step to step, so each step performs exactly ONE table gather: the
@@ -39,7 +41,8 @@ argument. Walk semantics (reference ``pecanpy.py:180-206``):
 * dead walkers keep emitting their resting node, which consumers never
   read because they cut each walk at its effective length.
 """
-from typing import Callable, Optional, Tuple
+import weakref
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -207,6 +210,181 @@ def _trial_fn(graph: DeviceCSR, p, q, extend, alpha_np, use_cdf):
     return run
 
 
+class _Lanes(NamedTuple):
+    """The queued engine's per-lane state, each [B] but ``cur_rows``
+    ([B, row width]): the current and previous node, the current node's
+    fused row, the next column to write, whether the lane walks, whether
+    it finished and waits for the flush, its effective length, and the
+    return-edge atom's mass and weight."""
+
+    cur: torch.Tensor
+    prev: torch.Tensor
+    cur_rows: torch.Tensor
+    step: torch.Tensor
+    active: torch.Tensor
+    done: torch.Tensor
+    eff_l: torch.Tensor
+    theta: torch.Tensor
+    wp: torch.Tensor
+
+
+def _queued_rounds(
+    graph: DeviceCSR, trial_fn, draw: DrawFn, lanes: _Lanes, buf_l: torch.Tensor,
+    t0: int, n: int, walk_length: int, use_atom: bool, undirected: bool,
+    excess: float, alpha_np: float,
+) -> _Lanes:
+    """Rounds ``t0 .. t0 + n - 1`` of ``generate_walks_queued``: returns the
+    lanes' new state, and writes each advanced lane's column into
+    ``buf_l`` in place. Round t draws ``draw(t, degrees)``."""
+    cur, prev, cur_rows, step, active, done, eff_l, theta, wp = lanes
+    sentinel = graph.num_nodes
+    for t in range(t0, t0 + n):
+        # dead-arrival / dead-start check on the current node
+        has = graph.rows_nbr(cur_rows)[:, 0] != sentinel
+        died = active & ~has & (step <= walk_length)
+        eff_l = torch.where(died, step, eff_l)
+
+        # one trial block over every lane; first-order lanes force
+        # acceptance of trial 1's proposal (their atom mass is 0)
+        needs = active & has & (step <= walk_length)
+        x, ok, wx = trial_fn(
+            draw(t, graph.rows_degree(cur_rows)), prev, cur, cur_rows,
+            theta if use_atom else None, wp if use_atom else None,
+            force_ok=step == 1,
+        )
+        adv = needs & ok
+        prev = torch.where(adv, cur, prev)
+        cur = torch.where(adv, x, cur)
+        col = torch.where(adv, step, walk_length + 1)
+        buf_l.scatter_(1, col[:, None].long(), x[:, None])
+        step = step + adv.to(torch.int32)
+
+        # finished lanes park until the block-boundary flush + claim
+        finished = died | (step > walk_length)
+        done = done | (active & finished)
+        active = active & ~finished
+
+        cur_rows = graph.gather_rows(cur)  # the one row gather per round
+        if use_atom:
+            if undirected:
+                wp_n = wx
+            else:
+                _, wp_n = rejection.membership(graph, prev, cur_rows)
+            theta_n = _theta_from(graph, wp_n, cur_rows, excess, alpha_np)
+            theta = torch.where(adv, theta_n, theta)
+            wp = torch.where(adv, wp_n, wp)
+    return _Lanes(cur, prev, cur_rows, step, active, done, eff_l, theta, wp)
+
+
+def _on_card(graph: DeviceCSR) -> bool:
+    return graph.fused.device.type == "cuda"
+
+
+def _replays_rounds(graph: DeviceCSR, draws: DrawFn, extend: bool) -> bool:
+    """Whether ``generate_walks_queued`` runs its blocks as replays of a
+    captured CUDA graph: on a card, on the plain trial block's route (the
+    trial kernels' route stays eager), on a graph held whole (a sharded
+    graph's fetches are collectives, which a capture cannot hold), with the
+    engine's own draws (an injected provider may read the round index or
+    the host)."""
+    return (
+        _on_card(graph)
+        and not rejection.use_trial_kernels(extend, graph)
+        and graph.loop_sync is None
+        and type(draws) is TrialDrawStream
+    )
+
+
+class _GraphedRounds:
+    """A block of the queued engine's rounds replayed from one captured
+    CUDA graph.
+
+    Op by op, a node2vec+ round is a few hundred small launches, so the
+    host's dispatch sets its pace; a replay launches a block of them at
+    once. The graph updates static lane tensors (``lanes``, ``buf_l``) in
+    place and draws from a generator of its own, registered with it. A call
+    loads its lanes and its chunk generator's state into them
+    (``load``), runs its blocks (``run``), writes the block boundary's
+    changes back (``store``), and hands the generator's state back to its
+    ``TrialDrawStream`` (``unload``), so a replayed chunk draws, and walks,
+    exactly as the eager one does.
+
+    The first block under a key runs eagerly (it warms up the allocator and
+    every kernel), the second captures the block and every later block,
+    in this call or the next, replays it. The capture calls
+    ``CUDAGraph.capture_begin`` / ``capture_end`` itself, on a side stream,
+    and not ``torch.cuda.graph``, whose entry synchronizes the device.
+    """
+
+    def __init__(self, lanes: _Lanes, buf_l: torch.Tensor):
+        self.lanes = _Lanes(*map(torch.empty_like, lanes))
+        self.buf_l = torch.empty_like(buf_l)
+        self.gen = torch.Generator(device=buf_l.device)
+        self.warm = False
+        self.graph = None
+
+    def load(self, lanes: _Lanes, buf_l: torch.Tensor, gen: torch.Generator):
+        self.store(lanes)
+        self.buf_l.copy_(buf_l)
+        self.gen.set_state(gen.get_state())
+
+    def store(self, lanes: _Lanes):
+        for dst, src in zip(self.lanes, lanes):
+            if dst is not src:
+                dst.copy_(src)
+
+    def unload(self, gen: torch.Generator):
+        gen.set_state(self.gen.get_state())
+
+    def run(self, run_block) -> bool:
+        """Run one block, ``run_block(lanes, buf_l, generator) -> _Lanes``,
+        on the static lanes; True when it was a replay."""
+        def block():
+            self.store(run_block(self.lanes, self.buf_l, self.gen))
+
+        if self.graph is None:
+            if not self.warm:
+                block()
+                self.warm = True
+                return False
+            self.graph = self._capture(block)
+            trace.count("walk.hub_graph_captures")
+        self.graph.replay()
+        return True
+
+    def _capture(self, fn):
+        from pecanpy_tpu_torch.models.sgns import _capture_stream
+
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.gen)
+        with torch.cuda.stream(_capture_stream(self.buf_l.device)):
+            graph.capture_begin()
+            try:
+                fn()
+            finally:
+                graph.capture_end()
+        return graph
+
+
+# (id of the DeviceCSR, lanes, walk length, trials, p, q, extend,
+# undirected, block) -> its _GraphedRounds. An entry goes with its graph
+# (``weakref.finalize``), so the tables a capture reads stay at their
+# addresses for as long as it can be replayed.
+_ROUND_GRAPHS = {}
+
+
+def _graphed_rounds(graph: DeviceCSR, key: tuple, make) -> _GraphedRounds:
+    """The process's ``_GraphedRounds`` of ``graph`` under ``key``, made by
+    ``make()`` on first use."""
+    key = (id(graph),) + key
+    entry = _ROUND_GRAPHS.get(key)
+    if entry is None or entry[0]() is not graph:
+        entry = (weakref.ref(graph), make())
+        _ROUND_GRAPHS[key] = entry
+        weakref.finalize(graph, _ROUND_GRAPHS.pop, key, None)
+    return entry[1]
+
+
 def generate_walks_queued(
     graph: DeviceCSR,
     starts: torch.Tensor,
@@ -245,6 +423,14 @@ def generate_walks_queued(
     counters ``walk.hub_rounds``, ``walk.hub_lane_rounds`` and
     ``walk.hub_steps`` (device sums, read only when asked).
 
+    Where ``_replays_rounds`` holds (node2vec+ on a card, the engine's own
+    draws), a block's rounds are replays of one captured CUDA graph
+    (``_GraphedRounds``), kept for the process under the graph and the
+    call's shapes and parameters; the block boundary stays eager. The
+    walks are the eager ones bit for bit. Counters: ``walk.hub_graph_captures``
+    and ``walk.hub_graph_rounds`` (rounds run by a replay; counted, 0
+    included, by every call).
+
     Args:
         starts: [W] int32 start nodes (the walk queue; W >= 1).
         draws: the per-round draws (``TrialDrawStream`` or injected).
@@ -265,7 +451,6 @@ def generate_walks_queued(
     starts = starts.to(device=dev, dtype=torch.int32)
     w_total = starts.shape[0]
     b = min(lanes, w_total)
-    sentinel = graph.num_nodes
     alpha_np = max(1.0, 1.0 / q)
     excess = 1.0 / p - alpha_np
     use_atom = excess > 0.0
@@ -276,67 +461,59 @@ def generate_walks_queued(
     # big / eff_big and column L + 1 of buf_l take writes meant for no one.
     wid = torch.arange(b, dtype=torch.int32, device=dev)
     cur = starts[:b].clone()
-    prev = cur.clone()
-    cur_rows = graph.gather_rows(cur)
     big = torch.zeros((w_total + 1, walk_length + 1), dtype=torch.int32, device=dev)
     eff_big = torch.full((w_total + 1,), walk_length + 1, dtype=torch.int32, device=dev)
     buf_l = torch.zeros((b, walk_length + 2), dtype=torch.int32, device=dev)
     buf_l[:, 0] = cur
-    eff_l = torch.full((b,), walk_length + 1, dtype=torch.int32, device=dev)
-    theta = torch.zeros(b, dtype=torch.float32, device=dev)
-    wp = torch.zeros(b, dtype=torch.float32, device=dev)
-    step = torch.ones(b, dtype=torch.int32, device=dev)  # next column to write
-    active = torch.ones(b, dtype=torch.bool, device=dev)
-    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    state = _Lanes(
+        cur=cur,
+        prev=cur.clone(),
+        cur_rows=graph.gather_rows(cur),
+        step=torch.ones(b, dtype=torch.int32, device=dev),  # next column to write
+        active=torch.ones(b, dtype=torch.bool, device=dev),
+        done=torch.zeros(b, dtype=torch.bool, device=dev),
+        eff_l=torch.full((b,), walk_length + 1, dtype=torch.int32, device=dev),
+        theta=torch.zeros(b, dtype=torch.float32, device=dev),
+        wp=torch.zeros(b, dtype=torch.float32, device=dev),
+    )
     with trace.sync("pecanpy.walk.queue_upload"):
         next_w = torch.tensor(b, dtype=torch.int32, device=dev)
 
     n_batches = -(-w_total // b)
     round_cap = n_batches * walk_length * round_cap_factor + 64
     block = max(int(block_rounds), 1)
+    consts = (walk_length, use_atom, undirected, excess, alpha_np)
+
+    graphed = None
+    if _replays_rounds(graph, draws, extend):
+        trials = draws.trials
+
+        def run_block(states, buf_s, gen):
+            def draw(t, deg):  # TrialDrawStream's draws, from the graph's generator
+                return _round_draws(gen, trials, deg)
+
+            return _queued_rounds(graph, trial_fn, draw, states, buf_s, 0, block, *consts)
+
+        graphed = _graphed_rounds(
+            graph, (b, walk_length, trials, p, q, extend, undirected, block),
+            lambda: _GraphedRounds(state, buf_l))
+        graphed.load(state, buf_l, draws.gen)
+        state, buf_l = graphed.lanes, graphed.buf_l
 
     t = 0
+    replayed = 0
     pending = b
     while pending > 0 and t < round_cap:
         with trace.span("pecanpy.walk.hub_block"):
-            for _ in range(block):
-                # dead-arrival / dead-start check on the current node
-                has = graph.rows_nbr(cur_rows)[:, 0] != sentinel
-                died = active & ~has & (step <= walk_length)
-                eff_l = torch.where(died, step, eff_l)
-
-                # one trial block over every lane; first-order lanes force
-                # acceptance of trial 1's proposal (their atom mass is 0)
-                needs = active & has & (step <= walk_length)
-                x, ok, wx = trial_fn(
-                    draws(t, graph.rows_degree(cur_rows)), prev, cur, cur_rows,
-                    theta if use_atom else None, wp if use_atom else None,
-                    force_ok=step == 1,
-                )
-                t += 1
-                adv = needs & ok
-                prev = torch.where(adv, cur, prev)
-                cur = torch.where(adv, x, cur)
-                col = torch.where(adv, step, walk_length + 1)
-                buf_l.scatter_(1, col[:, None].long(), x[:, None])
-                step = step + adv.to(torch.int32)
-
-                # finished lanes park until the block-boundary flush + claim
-                finished = died | (step > walk_length)
-                done = done | (active & finished)
-                active = active & ~finished
-
-                cur_rows = graph.gather_rows(cur)  # the one row gather per round
-                if use_atom:
-                    if undirected:
-                        wp_n = wx
-                    else:
-                        _, wp_n = rejection.membership(graph, prev, cur_rows)
-                    theta_n = _theta_from(graph, wp_n, cur_rows, excess, alpha_np)
-                    theta = torch.where(adv, theta_n, theta)
-                    wp = torch.where(adv, wp_n, wp)
+            if graphed is None:
+                state = _queued_rounds(
+                    graph, trial_fn, draws, state, buf_l, t, block, *consts)
+            elif graphed.run(run_block):
+                replayed += block
+            t += block
 
             # block boundary: flush done lanes' rows, then claim new walks
+            cur, _, cur_rows, step, active, done, eff_l, theta, wp = state
             tgt = torch.where(done, wid, w_total).long()
             big[tgt] = buf_l[:, : walk_length + 1]
             eff_big[tgt] = eff_l
@@ -347,22 +524,35 @@ def generate_walks_queued(
             wid = torch.where(claim, wid_new, wid)
             cur = torch.where(
                 claim, starts[torch.clamp(wid_new, max=w_total - 1).long()], cur)
-            step = torch.where(claim, 1, step)
-            eff_l = torch.where(claim, walk_length + 1, eff_l)
             buf_l[:, 0] = torch.where(claim, cur, buf_l[:, 0])
-            active = active | claim
-            done = torch.zeros_like(done)  # flushed; unclaimed lanes retire
             if use_atom:
                 theta = torch.where(claim, 0.0, theta)
                 wp = torch.where(claim, 0.0, wp)
-            cur_rows = torch.where(claim[:, None], graph.gather_rows(cur), cur_rows)
+            claimed = state._replace(
+                cur=cur,
+                cur_rows=torch.where(claim[:, None], graph.gather_rows(cur), cur_rows),
+                step=torch.where(claim, 1, step),
+                active=active | claim,
+                done=torch.zeros_like(done),  # flushed; unclaimed lanes retire
+                eff_l=torch.where(claim, walk_length + 1, eff_l),
+                theta=theta,
+                wp=wp,
+            )
+            if graphed is None:
+                state = claimed
+            else:
+                graphed.store(claimed)
             with trace.sync("pecanpy.walk.pending_read"):
-                pending = int(active.sum())  # the one host read per block
+                pending = int(state.active.sum())  # the one host read per block
+    if graphed is not None:
+        graphed.unload(draws.gen)
+    trace.count("walk.hub_graph_rounds", replayed)
 
     # lanes cut off by the round cap flush their partial rows; their eff
     # records the columns actually written
+    active, done, step = state.active, state.done, state.step
     residual = active | done
-    eff_l = torch.where(active, torch.minimum(eff_l, step), eff_l)
+    eff_l = torch.where(active, torch.minimum(state.eff_l, step), state.eff_l)
     tgt = torch.where(residual, wid, w_total).long()
     big[tgt] = buf_l[:, : walk_length + 1]
     eff_big[tgt] = eff_l

@@ -1137,3 +1137,86 @@ def test_graphed_embed_frees_its_graph(cuda, monkeypatch):
     eager = g.embed(**kw)
     assert trace.last_job("pecanpy.embed").counter("sgns.graph_replays") == 0
     assert eager.tobytes() == out.tobytes()
+
+
+def _graphed_hub_walks(cuda, dg, chunks, p, q):
+    """``generate_walks_queued`` with node2vec+ (the plain trial block's
+    route) over ``chunks`` in one job: each call's (walks, eff, rounds),
+    and the job's record."""
+    from pecanpy_tpu_torch.models import engine
+    from pecanpy_tpu_torch.utils import trace
+
+    start = torch.arange(dg.num_nodes, dtype=torch.int32, device=cuda).repeat(4)
+    with trace.job("pecanpy.test_hub_graph"):
+        out = [engine.generate_walks_queued(
+            dg, start, engine.TrialDrawStream(5, c, 2, cuda), 12, p, q, True, lanes=256,
+            return_rounds=True) for c in chunks]
+    torch.cuda.synchronize()
+    return out, trace.last_job("pecanpy.test_hub_graph")
+
+
+@pytest.mark.parametrize("directed", [False, True])  # directed: wp from membership
+@pytest.mark.parametrize("p,q", [(0.5, 0.5), (0.25, 2.0)])  # atom off / on
+def test_graphed_hub_rounds_bit_equal_to_eager(cuda, monkeypatch, p, q, directed):
+    """node2vec+'s queued rounds replayed from one captured CUDA graph: two
+    chunks, then the first again (a second call under the key), one
+    capture, every block but the first a replay, and walks, effective
+    lengths and rounds bit-equal to the eager engine's."""
+    from pecanpy_tpu_torch.models import engine
+    from pecanpy_tpu_torch.ops.layout import device_csr_from_dense
+
+    adj, cap = _hub_graph(13, directed=directed, float_weights=True)
+    dg = device_csr_from_dense(adj, degree_cap=cap, with_cdf=True, device=cuda)
+    assert dg.has_hubs and dg.symmetric != directed
+    got, rec = _graphed_hub_walks(cuda, dg, (0, 1, 0), p, q)
+    rounds = sum(r for _, _, r in got)
+    assert rec.counter("walk.hub_rounds") == rounds > 3 * 16
+    assert rec.counter("walk.hub_graph_captures") == 1
+    assert rec.counter("walk.hub_graph_rounds") == rounds - 16  # the first block eager
+    monkeypatch.setattr(engine, "_replays_rounds", lambda *args: False)
+    want, rec = _graphed_hub_walks(cuda, dg, (0, 1, 0), p, q)
+    assert rec.counter("walk.hub_graph_captures") == rec.counter("walk.hub_graph_rounds") == 0
+    for (w_g, e_g, r_g), (w_w, e_w, r_w) in zip(got, want):
+        assert torch.equal(w_g, w_w) and torch.equal(e_g, e_w) and r_g == r_w
+    assert torch.equal(got[2][0], got[0][0]) and not torch.equal(got[1][0], got[0][0])
+    w, e = got[1][0].cpu().numpy(), got[1][1].cpu().numpy()
+    for row, m in zip(w, e):
+        assert all(adj[a, b] != 0 for a, b in zip(row[: m - 1], row[1:m]))
+
+
+def test_graphed_hub_walks_free_their_graph(cuda, monkeypatch):
+    """node2vec+ ``simulate_walks_device`` on a hub graph: the first call
+    captures, the second only replays (every round), both bit-equal to
+    the eager engine; dropping the mode frees the graph's captured rounds
+    and its memory pool."""
+    import gc
+
+    from pecanpy_tpu_torch import pecanpy
+    from pecanpy_tpu_torch.models import engine
+    from pecanpy_tpu_torch.utils import trace
+
+    adj, cap = _hub_graph(17, n=400, float_weights=True)
+    gc.collect()
+    torch.cuda.synchronize()
+    base_mem, base_entries = torch.cuda.memory_allocated(cuda), len(engine._ROUND_GRAPHS)
+    g = pecanpy.SparseOTF.from_mat(adj, [str(i) for i in range(adj.shape[0])], p=0.5,
+                                   q=0.5, extend=True, random_state=3, degree_cap=cap,
+                                   device=cuda)
+    assert g.get_device_graph().has_hubs
+    out = []
+    for i in range(2):
+        out.append(g.simulate_walks_device(8, 20))
+        rec = trace.last_job("pecanpy.walks")
+        assert rec.counter("walk.hub_graph_captures") == 1 - i
+        if i:
+            assert rec.counter("walk.hub_graph_rounds") == rec.counter("walk.hub_rounds") > 0
+    assert len(engine._ROUND_GRAPHS) == base_entries + 1
+    monkeypatch.setattr(engine, "_replays_rounds", lambda *args: False)
+    eager = g.simulate_walks_device(8, 20)
+    for got in out:
+        assert all(torch.equal(a, b) for a, b in zip(got, eager))
+    del g, out, eager, rec
+    gc.collect()
+    torch.cuda.synchronize()
+    assert len(engine._ROUND_GRAPHS) == base_entries
+    assert torch.cuda.memory_allocated(cuda) - base_mem <= 1 << 20
