@@ -17,6 +17,7 @@ the JAX package agree in distribution, not sample for sample.
 """
 import dataclasses
 import itertools
+import os
 import time
 import warnings
 from typing import Callable, List, Optional, Tuple
@@ -37,6 +38,9 @@ DEFAULT_WALKER_BATCH = 131072
 # max over lanes of summed geometric retries) grows with the batch
 # (``pecanpy_tpu/models/base.py``)
 DEFAULT_HUB_WALKER_BATCH = 32768
+# the hub walkers' first-order CDF channel, N * dpad * 4 bytes, is built
+# up to this size (``Base._want_cdf``)
+HUB_CDF_BUDGET = 2 << 30
 
 
 def resolve_device(device) -> torch.device:
@@ -52,18 +56,27 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _amortized() -> bool:
+    """The hub engines, unless ``PECANPY_TPU_AMORTIZED=0`` asks for the
+    scan engine with the per-step rejection sampler."""
+    return os.environ.get("PECANPY_TPU_AMORTIZED", "1") not in ("0", "false")
+
+
 @dataclasses.dataclass(frozen=True)
 class WalkSpec:
-    """How a mode walks, as the multi-rank path needs it (``parallel/``).
+    """How a mode walks, on one device and across ranks (``parallel/``).
 
-    A class attribute of each mode (``Base.WALK_SPEC``) that also drives
-    its single-device ``make_step_fns`` and ``_draw_width``. Picklable: the
-    mode class travels to spawned ranks by reference.
+    A class attribute of each mode (``Base.WALK_SPEC``) that drives its
+    ``make_step_fns``, ``_draw_width`` and the engine a graph with hubs
+    walks with. Picklable: the mode class travels to spawned ranks by
+    reference.
 
     Args:
         fns: module-level factory ``(p, q, extend) -> (first_fn, step_fn)``.
-        hub_engine: hub graphs walk with the amortized hub walker (the OTF
-            modes), not the scan engine over ``fns``.
+        hub_engine: hub graphs walk with a hub engine (the OTF modes), not
+            the scan engine over ``fns``: the queued one on one device, the
+            amortized one across ranks. Under ``PECANPY_TPU_AMORTIZED=0``
+            one device takes the scan engine with the per-step sampler.
         hub_draw_width: uniforms a scan-engine step draws on a hub graph.
         edge: the walks run on a row-sharded graph (``partition="edge"``).
     """
@@ -175,9 +188,31 @@ class Base(BaseGraph):
             )
         return cls.WALK_SPEC
 
+    # the PreComp modes draw first steps from the first-order CDF channel
+    _needs_cdf_channel = False
+
     def make_step_fns(self):
         """Return (first_fn, step_fn), each taking (dg, u, ...)."""
         return self.walk_spec().step_fns(self.p, self.q, self.extend)
+
+    def _want_cdf(self, max_degree: int) -> bool:
+        """Should this graph carry the first-order CDF channel?
+
+        The PreComp modes need it. The hub engines' capped-row proposal
+        reads it instead of a prefix sum of the wgt row every trial, so a
+        mode whose spec takes them gets it on a hub graph, up to
+        ``HUB_CDF_BUDGET``. The scan engine has no use for it, and neither
+        has the per-step sampler (``PECANPY_TPU_AMORTIZED=0``;
+        ``pecanpy_tpu/models/modes.py:_want_cdf``).
+        """
+        if self._needs_cdf_channel:
+            return True
+        cap = self.degree_cap
+        hubs = cap is not None and max_degree > cap
+        if not (hubs and self.WALK_SPEC is not None and self.WALK_SPEC.hub_engine):
+            return False
+        dpad = -(-cap // layout.LANE) * layout.LANE
+        return _amortized() and self.num_nodes * dpad * 4 <= HUB_CDF_BUDGET
 
     def _draw_width(self) -> int:
         """Uniforms each walk step draws (the step functions' ``u`` is
@@ -270,15 +305,22 @@ class Base(BaseGraph):
             return DEFAULT_HUB_WALKER_BATCH
         return DEFAULT_WALKER_BATCH
 
-    def _walk_queue_factor(self) -> int:
-        """Walks per chunk, in units of walker lanes (the hub modes
-        override it: their queued engine amortizes stragglers per chunk)."""
-        return 1
-
     def _uses_step_sampler(self) -> bool:
-        """Do this mode's step functions take the per-step rejection
-        sampler's draws on this graph (the OTF modes on a hub graph)?"""
-        return False
+        """Does this mode walk this graph with a hub engine
+        (``WalkSpec.uses_hub_engine``)? Its step functions then take the
+        per-step rejection sampler's draws, where they run."""
+        spec = self.WALK_SPEC
+        return spec is not None and spec.uses_hub_engine(self.get_device_graph())
+
+    def _walks_queued(self) -> bool:
+        """Does this graph walk with the queued hub engine: a hub engine
+        applies, and ``PECANPY_TPU_AMORTIZED`` is not 0?"""
+        return self._uses_step_sampler() and _amortized()
+
+    def _walk_queue_factor(self) -> int:
+        """Walks per chunk, in units of walker lanes: the queued engine
+        amortizes its straggler tail over the whole chunk."""
+        return engine.HUB_QUEUE_FACTOR if self._walks_queued() else 1
 
     def _sampler_draws(self, chunk_idx: int) -> Optional[engine.StepDrawFn]:
         """The per-step rejection sampler's draws of one walk chunk, or
@@ -291,12 +333,23 @@ class Base(BaseGraph):
     def _make_walk_runner(self, walk_length: int):
         """The (dg, start, chunk index) -> (walks, eff) walk callable.
 
-        Default: the scan engine over this mode's step functions, fed by
-        ``engine.walk_uniforms(seed, chunk index, width)`` and, where the
-        mode uses the per-step sampler, ``_sampler_draws``. The OTF modes
-        route hub graphs to the hub engines instead, unless
-        ``PECANPY_TPU_AMORTIZED=0``.
+        The queued hub engine (``_walks_queued``) with a ``TrialDrawStream``
+        of ``engine.HUB_TRIALS`` trials a round, seeded from (seed, chunk
+        index); else the scan engine over this mode's step functions, fed
+        by ``engine.walk_uniforms(seed, chunk index, width)`` and, where
+        the mode uses the per-step sampler, ``_sampler_draws``.
         """
+        if self._walks_queued():
+            p, q, extend = self.p, self.q, self.extend
+            lanes = self._resolved_walker_batch()
+
+            def run_queued(dg, start, chunk_idx):
+                draws = engine.TrialDrawStream(
+                    self._seed(), chunk_idx, engine.HUB_TRIALS, self.device)
+                return engine.generate_walks_queued(
+                    dg, start, draws, walk_length, p, q, extend, lanes=lanes)
+
+            return run_queued
         first_fn, step_fn = self.make_step_fns()
         width = self._draw_width()
 

@@ -50,7 +50,7 @@ import torch
 from pecanpy_tpu_torch.ops import rejection, trialkernel
 from pecanpy_tpu_torch.ops.layout import DeviceCSR
 from pecanpy_tpu_torch.ops.rejection import PhaseDrawFn, RoundDraws, _theta_from
-from pecanpy_tpu_torch.utils import trace
+from pecanpy_tpu_torch.utils import cudagraph, trace
 
 FirstFn = Callable[..., torch.Tensor]
 StepFn = Callable[..., torch.Tensor]
@@ -74,6 +74,11 @@ SAMPLER_STREAM = 1
 # sampler's [seed, i, 1], the SGNS steps' [seed, 1, g(, d)] and the
 # multi-rank walks' [seed, 2, i, d] (SeedSequence pads short entropy with 0)
 MOVE_FORWARD_STREAM = 3
+# trials per round of the hub engines (the JAX walkers' ``trials``)
+HUB_TRIALS = 2
+# walks per chunk of the queued hub engine, in units of its lanes: it pays
+# its straggler tail once per chunk
+HUB_QUEUE_FACTOR = 8
 
 
 def _chunk_generator(seed: int, chunk_idx, device, stream: int = 0) -> torch.Generator:
@@ -310,10 +315,9 @@ class _GraphedRounds:
     exactly as the eager one does.
 
     The first block under a key runs eagerly (it warms up the allocator and
-    every kernel), the second captures the block and every later block,
-    in this call or the next, replays it. The capture calls
-    ``CUDAGraph.capture_begin`` / ``capture_end`` itself, on a side stream,
-    and not ``torch.cuda.graph``, whose entry synchronizes the device.
+    every kernel), the second captures the block (``cudagraph.capture``,
+    which waits on nothing) and every later block, in this call or the
+    next, replays it.
     """
 
     def __init__(self, lanes: _Lanes, buf_l: torch.Tensor):
@@ -353,17 +357,7 @@ class _GraphedRounds:
         return True
 
     def _capture(self, fn):
-        from pecanpy_tpu_torch.models.sgns import _capture_stream
-
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.gen)
-        with torch.cuda.stream(_capture_stream(self.buf_l.device)):
-            graph.capture_begin()
-            try:
-                fn()
-            finally:
-                graph.capture_end()
-        return graph
+        return cudagraph.capture(fn, self.buf_l.device, (self.gen,))[0]
 
 
 # (id of the DeviceCSR, lanes, walk length, trials, p, q, extend,

@@ -3,11 +3,12 @@
 Counterpart of ``pecanpy_tpu/models/modes.py``. ``SparseOTF`` and
 ``DenseOTF`` differ only in which host container they parse into; both
 feed the same fused row layout. Graphs without hubs walk with the scan
-engine over the step functions below; the OTF modes walk graphs with
-hubs with the hub engines (``_AmortizedOTFMixin``), or under
-``PECANPY_TPU_AMORTIZED=0`` with the scan engine and the per-step
-rejection sampler. ``FirstOrderUnweighted``, ``PreCompFirstOrder`` and
-``PreComp`` always take the scan engine.
+engine over the step functions below; the OTF modes, whose ``WalkSpec``
+takes the hub engines, walk graphs with hubs with the queued hub engine,
+or under ``PECANPY_TPU_AMORTIZED=0`` with the scan engine and the
+per-step rejection sampler (``Base._make_walk_runner``).
+``FirstOrderUnweighted``, ``PreCompFirstOrder`` and ``PreComp`` always
+take the scan engine.
 
 Step functions receive the *pre-gathered fused rows* of the current and
 previous nodes (carried by the engine) and never touch the node table;
@@ -24,7 +25,6 @@ from pecanpy_tpu_torch.models import engine
 from pecanpy_tpu_torch.models.base import Base, WalkSpec
 from pecanpy_tpu_torch.ops import rejection, sampling, transition
 from pecanpy_tpu_torch.ops.layout import (
-    LANE,
     DeviceCSR,
     build_device_csr,
     device_csr_from_dense,
@@ -32,39 +32,8 @@ from pecanpy_tpu_torch.ops.layout import (
 from pecanpy_tpu_torch.utils import trace
 
 
-def _amortized() -> bool:
-    """The hub walkers, unless ``PECANPY_TPU_AMORTIZED=0`` asks for the
-    scan engine with the per-step rejection sampler."""
-    return os.environ.get("PECANPY_TPU_AMORTIZED", "1") not in ("0", "false")
-
-
-def _want_cdf(mode, max_degree: int) -> bool:
-    """Should this graph carry the first-order CDF channel?
-
-    The PreComp modes need it (``_needs_cdf_channel``). The hub walkers'
-    capped-row proposal reads it instead of a prefix sum of the wgt row
-    every trial, so the OTF modes (``_cdf_for_hubs``) give it to hub
-    graphs within a budget of N * dpad * 4 bytes (default 2 GiB,
-    ``PECANPY_TPU_CDF_BUDGET_MB``; 0 disables). Graphs without hubs walk
-    the OTF modes with the scan engine, which has no use for it, and so
-    does the per-step sampler (``PECANPY_TPU_AMORTIZED=0``;
-    ``pecanpy_tpu/models/modes.py:_want_cdf``).
-    """
-    if mode._needs_cdf_channel:
-        return True
-    cap = mode.degree_cap
-    if cap is None or max_degree <= cap or not mode._cdf_for_hubs or not _amortized():
-        return False
-    budget = int(os.environ.get("PECANPY_TPU_CDF_BUDGET_MB", "2048")) * (1 << 20)
-    dpad = -(-min(max_degree, cap) // LANE) * LANE
-    return mode.num_nodes * dpad * 4 <= budget
-
-
 class _SparseModeBase(Base, SparseGraph):
     """Modes whose host container is the CSR ``SparseGraph``."""
-
-    _needs_cdf_channel = False
-    _cdf_for_hubs = False
 
     def _build_device_graph(self, device=None) -> DeviceCSR:
         deg_max = int(np.diff(self.indptr).max()) if self.num_edges else 0
@@ -74,7 +43,7 @@ class _SparseModeBase(Base, SparseGraph):
             self.data,
             gamma=self.gamma,
             with_thresholds=self.extend,
-            with_cdf=_want_cdf(self, deg_max),
+            with_cdf=self._want_cdf(deg_max),
             degree_cap=self.degree_cap,
             device=device or self.device,
         )
@@ -82,9 +51,6 @@ class _SparseModeBase(Base, SparseGraph):
 
 class _DenseModeBase(Base, DenseGraph):
     """Modes whose host container is the dense ``DenseGraph``."""
-
-    _needs_cdf_channel = False
-    _cdf_for_hubs = False
 
     def _build_device_graph(self, device=None) -> DeviceCSR:
         dense = np.asarray(self.data)
@@ -94,7 +60,7 @@ class _DenseModeBase(Base, DenseGraph):
             dense,
             gamma=self.gamma,
             with_thresholds=self.extend,
-            with_cdf=_want_cdf(self, deg_max),
+            with_cdf=self._want_cdf(deg_max),
             degree_cap=self.degree_cap,
             device=device or self.device,
         )
@@ -183,68 +149,14 @@ def precomp_first_order_fns(p=1.0, q=1.0, extend=False):
     return _first_order_fns(move)
 
 
-class _AmortizedOTFMixin:
-    """Routes hub graphs through the hub walkers.
-
-    The queued engine (``engine.generate_walks_queued``) is the default;
-    ``PECANPY_TPU_QUEUE_FACTOR=0`` takes the per-batch amortized engine.
-    ``PECANPY_TPU_AMORTIZED_TRIALS`` (default 2) sets the trials per
-    round, ``PECANPY_TPU_UNROLL`` (default 4) the rounds per host read
-    of the pending count: ``UNROLL`` in the amortized engine, ``4 *
-    UNROLL`` in the queued one (the JAX engine's ``unroll *
-    flush_every``). Graphs without hubs keep the scan engine, and so do
-    hub graphs under ``PECANPY_TPU_AMORTIZED=0``, with the per-step
-    rejection sampler (``_otf_step_fns``) fed by a draw stream per chunk
-    seeded from (seed, chunk index). Hub graphs get the first-order CDF
-    channel (``_cdf_for_hubs``, see ``_want_cdf``) unless that setting
-    is on.
-    """
-
-    _cdf_for_hubs = True
-
-    def _walk_queue_factor(self) -> int:
-        """Walks per chunk = queue_factor * walker lanes (hub graphs): the
-        queued engine amortizes its straggler tail over the whole chunk
-        (``PECANPY_TPU_QUEUE_FACTOR``, default 8; 0 takes the per-batch
-        amortized engine, one batch per chunk). 1 for the scan engine."""
-        if not self.get_device_graph().has_hubs or not _amortized():
-            return 1
-        return max(int(os.environ.get("PECANPY_TPU_QUEUE_FACTOR", "8")), 1)
-
-    def _uses_step_sampler(self) -> bool:
-        return self.get_device_graph().has_hubs
-
-    def _make_walk_runner(self, walk_length: int):
-        if not self.get_device_graph().has_hubs or not _amortized():
-            return super()._make_walk_runner(walk_length)
-        p, q, extend = self.p, self.q, self.extend
-        trials = int(os.environ.get("PECANPY_TPU_AMORTIZED_TRIALS", "2"))
-        unroll = int(os.environ.get("PECANPY_TPU_UNROLL", "4"))
-        queued = os.environ.get("PECANPY_TPU_QUEUE_FACTOR", "8") != "0"
-        lanes = self._resolved_walker_batch()
-
-        def run(dg, start, chunk_idx):
-            draws = engine.TrialDrawStream(self._seed(), chunk_idx, trials, self.device)
-            if queued:
-                return engine.generate_walks_queued(
-                    dg, start, draws, walk_length, p, q, extend, lanes=lanes,
-                    block_rounds=4 * unroll,
-                )
-            return engine.generate_walks_amortized(
-                dg, start, draws, walk_length, p, q, extend, unroll=unroll
-            )
-
-        return run
-
-
-class SparseOTF(_AmortizedOTFMixin, _SparseModeBase):
+class SparseOTF(_SparseModeBase):
     """Compute second-order probabilities on the fly each step (default
     mode; reference ``pecanpy.py:510-561``)."""
 
     WALK_SPEC = WalkSpec(_otf_step_fns, hub_engine=True)
 
 
-class DenseOTF(_AmortizedOTFMixin, _DenseModeBase):
+class DenseOTF(_DenseModeBase):
     """OTF walking from a dense adjacency input (reference
     ``pecanpy.py:564-614``): the same transition law as SparseOTF."""
 

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from pecanpy_tpu_torch.ops.apply import apply_mean_updates, apply_mean_updates_two
-from pecanpy_tpu_torch.utils import trace
+from pecanpy_tpu_torch.utils import cudagraph, trace
 from pecanpy_tpu_torch.utils.checkpoint import SGNSCheckpointer, verify_rng_scheme
 
 # Version tag of the port's draw derivation: walk chunks from
@@ -507,15 +507,6 @@ def make_step_body(num_nodes: int, config: SGNSConfig, model_group=None, data_gr
     return step
 
 
-@functools.lru_cache(maxsize=None)
-def _capture_stream(device) -> "torch.cuda.Stream":
-    """The side stream every capture on ``device`` records on. One stream
-    a device: cuBLAS keeps a workspace per stream, allocated at the first
-    capture on it from that graph's pool, so a new stream for each
-    capture would leave a workspace behind with each graph."""
-    return torch.cuda.Stream(device)
-
-
 class _GraphedBody:
     """The SGNS step body replayed from one captured CUDA graph.
 
@@ -537,11 +528,8 @@ class _GraphedBody:
     step closure that holds it. Counters: ``sgns.graph_captures``,
     ``sgns.graph_replays`` (chunk-steps whose body was a replay).
 
-    The capture calls ``CUDAGraph.capture_begin`` / ``capture_end`` itself
-    and not ``torch.cuda.graph``, whose entry synchronizes the device and
-    empties the allocator's cache: a blocking sync in every call, and
-    fresh device allocations for the steps after it. Nothing in a
-    chunk-step, capture included, waits on the device.
+    The capture (``cudagraph.capture``) waits on nothing, so nothing in
+    a chunk-step, capture included, waits on the device.
     """
 
     def __init__(self, body):
@@ -561,14 +549,8 @@ class _GraphedBody:
         if self.graph is None:
             device = inputs[0].device
             self.static = [t.clone() for t in inputs] + [_device_offset(pool_off, device)]
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.stream(_capture_stream(device)):
-                graph.capture_begin()
-                try:
-                    self.streams = self.body(*tables, *self.static)
-                finally:
-                    graph.capture_end()
-            self.graph = graph
+            self.graph, self.streams = cudagraph.capture(
+                lambda: self.body(*tables, *self.static), device)
             trace.count("sgns.graph_captures")
         else:
             for dst, src in zip(self.static, inputs):

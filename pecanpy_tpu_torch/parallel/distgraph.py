@@ -41,10 +41,6 @@ from pecanpy_tpu_torch.ops.layout import NEG1, DeviceCSR, move, shard_rows
 from pecanpy_tpu_torch.parallel.mesh import DATA_AXIS, Group, Mesh
 from pecanpy_tpu_torch.utils import trace
 
-# trials per round of the hub walker (``PECANPY_TPU_AMORTIZED_TRIALS``'s
-# default; the JAX multichip walker's ``trials``)
-HUB_TRIALS = 2
-
 
 def _collective_fetch(
     table: torch.Tensor, idx: torch.Tensor, rows_per_shard: int, group: Group
@@ -245,7 +241,7 @@ def default_walk_draws(dg, mode, seed, entropy, b, walk_length, device):
     uniforms, both from ``SeedSequence([seed, *entropy])``."""
     spec = mode.walk_spec()
     if spec.uses_hub_engine(dg):
-        return engine.TrialDrawStream(seed, entropy, HUB_TRIALS, device)
+        return engine.TrialDrawStream(seed, entropy, engine.HUB_TRIALS, device)
     return engine.walk_uniforms(seed, entropy, walk_length, b, device, spec.draw_width(dg))
 
 

@@ -1,3 +1,3 @@
 """Utilities: the downstream evaluation protocol (``evaluate``), SGNS
-training checkpoints (``checkpoint``) and the port's spans and counters
-(``trace``)."""
+training checkpoints (``checkpoint``), CUDA-graph capture (``cudagraph``)
+and the port's spans and counters (``trace``)."""

@@ -217,12 +217,12 @@ def test_walk_length_one(rng, queued):
         assert adj[a, b] != 0 or m == 1
 
 
-@pytest.mark.parametrize("queue_factor", ["8", "0"])
-def test_mode_early_termination_and_reproducible(rng, monkeypatch, queue_factor):
-    """SparseOTF on a hub graph with a sink, through the queued (default)
-    or per-batch amortized engine: walks follow edges, stop only at the
-    sink, and reproduce under one seed; no trial kernel runs on the CPU."""
-    monkeypatch.setenv("PECANPY_TPU_QUEUE_FACTOR", queue_factor)
+@pytest.mark.parametrize("queued", [True, False], ids=["queued", "amortized"])
+def test_mode_early_termination_and_reproducible(rng, queued):
+    """SparseOTF on a hub graph with a sink, through the mode (the queued
+    engine) or the per-batch amortized engine on the mode's graph and
+    start nodes: walks follow edges, stop only at the sink, and reproduce
+    under one seed; no trial kernel runs on the CPU."""
     n = 9
     adj = oracle.random_graph(rng, n, mean_degree=5.0, weighted=True)
     adj[n - 1, :] = 0
@@ -234,7 +234,13 @@ def test_mode_early_termination_and_reproducible(rng, monkeypatch, queue_factor)
             adj, ids, p=0.5, q=2.0, random_state=5, degree_cap=CAP, device="cpu",
             walker_batch=64,
         )
-        outs.append(g.simulate_walks_device(40, 6))
+        if queued:
+            outs.append(g.simulate_walks_device(40, 6))
+        else:
+            draws = engine.TrialDrawStream(5, 0, engine.HUB_TRIALS, "cpu")
+            starts = torch.from_numpy(g._start_nodes(40))
+            outs.append(engine.generate_walks_amortized(
+                g.get_device_graph(), starts, draws, 6, 0.5, 2.0, False))
     walks, eff = outs[0]
     assert torch.equal(walks, outs[1][0]) and torch.equal(eff, outs[1][1])
     assert walks.shape == (40 * n, 7)

@@ -326,6 +326,45 @@ def test_node2vec_pp_step_equals_jax_and_law(rng):
                lambda prev, cur: oracle.node2vec_pp_probs(adj, cur, prev, 0.5, 2.0, 0.0), 400)
 
 
+# -- the walk route: which engine, queue factor, sampler and cdf channel ------
+
+_OTF = ("SparseOTF", "DenseOTF")
+_ROUTES = [(m, h, a) for m in _OTF + ("FirstOrderUnweighted", "PreCompFirstOrder")
+           for h in (True, False) for a in (("1", "0") if m in _OTF else ("1",))]
+
+
+@pytest.mark.parametrize("mode,hubs,amortized", _ROUTES)
+def test_walk_route(mode, hubs, amortized, rng, monkeypatch):
+    """The mode's spec and ``PECANPY_TPU_AMORTIZED`` alone route a walk: the
+    OTF modes take the queued hub engine on a hub graph (8 x lanes walks a
+    chunk, the cdf channel) or, under ``AMORTIZED=0``, the scan engine with
+    the per-step sampler; every other case the plain scan engine, with the
+    cdf channel only where PreCompFirstOrder's steps read it."""
+    monkeypatch.setenv("PECANPY_TPU_AMORTIZED", amortized)
+    ran = []
+    for name in ("generate_walks", "generate_walks_queued", "generate_walks_amortized"):
+        def spy(*args, _name=name, _fn=getattr(engine, name), **kwargs):
+            ran.append(_name)
+            return _fn(*args, **kwargs)
+
+        monkeypatch.setattr(engine, name, spy)
+    adj, cap = _hub_graph(rng, n=30)
+    g = getattr(pecanpy, mode).from_mat(
+        adj, _ids(30), p=0.5, q=2.0, random_state=0, device="cpu",
+        degree_cap=cap if hubs else None,
+    )
+    dg = g.get_device_graph()
+    assert dg.has_hubs == hubs
+    walks, eff = g.simulate_walks_device(1, 4)
+    assert walks.shape == (30, 5) and (eff == 5).all()
+    hub_engine = hubs and mode in _OTF
+    queued = hub_engine and amortized == "1"
+    assert ran == ["generate_walks_queued" if queued else "generate_walks"]
+    assert g._walk_queue_factor() == (engine.HUB_QUEUE_FACTOR if queued else 1)
+    assert g._uses_step_sampler() == hub_engine
+    assert ("cdf" in dg.channels) == (queued or mode == "PreCompFirstOrder")
+
+
 # -- each mode through embed() ------------------------------------------------
 
 

@@ -194,11 +194,12 @@ def test_embed_job_counts_its_chunk_steps_and_syncs(karate_edg, streaming):
     assert total.total_ns >= rec.span("pecanpy.sgns.epoch").total_ns > 0
 
 
+@pytest.mark.parametrize("mode", [pecanpy.SparseOTF, pecanpy.DenseOTF])
 @pytest.mark.parametrize("num_walks", [2, 20])  # walks below / above 1,024
-def test_hub_walk_counts_the_queued_engine_rounds(num_walks):
+def test_hub_walk_counts_the_queued_engine_rounds(num_walks, mode):
     adj = small_hub_graph(np.random.default_rng(4))
-    g = pecanpy.SparseOTF.from_mat(adj, [str(i) for i in range(adj.shape[0])], p=0.5,
-                                   q=2.0, random_state=7, degree_cap=6, device="cpu")
+    g = mode.from_mat(adj, [str(i) for i in range(adj.shape[0])], p=0.5, q=2.0,
+                      random_state=7, degree_cap=6, device="cpu")
     dg = g.get_device_graph()
     assert dg.has_hubs and trace.last_job("pecanpy.layout") is not None
     walks, eff = g.simulate_walks_device(num_walks, 12)
@@ -221,22 +222,19 @@ def test_hub_walk_counts_the_queued_engine_rounds(num_walks):
     assert rec.counter(trace.SYNCS) == 2 + blocks
 
 
-def test_amortized_hub_engine_counts_rounds_and_steps(monkeypatch):
-    # PECANPY_TPU_QUEUE_FACTOR=0 takes the per-batch engine (the multi-rank
-    # hub walker's): its counters agree with the queued engine's meaning
-    monkeypatch.setenv("PECANPY_TPU_QUEUE_FACTOR", "0")
+def test_amortized_hub_engine_counts_rounds_and_steps():
+    # the per-batch engine (the multi-rank hub walker's), called in a job:
+    # its counters agree with the queued engine's meaning
     adj = small_hub_graph(np.random.default_rng(4))
     g = pecanpy.SparseOTF.from_mat(adj, [str(i) for i in range(adj.shape[0])], p=0.5,
                                    q=2.0, random_state=7, degree_cap=6, device="cpu")
     dg = g.get_device_graph()
-    walks, eff = g.simulate_walks_device(2, 12)
-    rec = trace.last_job("pecanpy.walks")
-
     starts = torch.from_numpy(g._start_nodes(2))
     draws = engine.TrialDrawStream(g._seed(), 0, 2, g.device)
-    want_w, want_e, rounds = engine.generate_walks_amortized(
-        dg, starts, draws, 12, 0.5, 2.0, False, return_rounds=True)
-    assert torch.equal(walks, want_w) and torch.equal(eff, want_e)
+    with trace.job("pecanpy.walks"):
+        _, eff, rounds = engine.generate_walks_amortized(
+            dg, starts, draws, 12, 0.5, 2.0, False, return_rounds=True)
+    rec = trace.last_job("pecanpy.walks")
     assert rec.counter("walk.hub_rounds") == rounds > 0
     assert rec.counter("walk.hub_lane_rounds") == rounds * starts.numel()
     # no lane hit the round cap: a lane wrote columns 2 .. eff - 1 in the rounds
