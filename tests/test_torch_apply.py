@@ -20,6 +20,7 @@ import torch
 from pecanpy_tpu.ops import apply as japply
 from pecanpy_tpu_torch.ops import apply as apply_lib
 from pecanpy_tpu_torch.ops.apply import apply_mean_updates, apply_mean_updates_two
+from test_torch_kernels import _scan_scales
 
 T = torch.from_numpy
 
@@ -141,6 +142,44 @@ def test_sorted_scales_float_cap_equals_tensor_cap(rng, cap):
     cnt = rng.integers(0, 31, 800).astype(np.float32)
     got = apply_lib._sorted_scales(T(keys), T(cnt), 0.025, cap)
     want = apply_lib._sorted_scales(T(keys), T(cnt), 0.025, torch.tensor(cap))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _scales_case(rng, case):
+    """(keys_s, cnt_s, cap) of one named stream shape."""
+    if case == "single":
+        keys, cnt = np.array([7], np.int32), np.array([3.0], np.float32)
+    elif case == "one_group":
+        keys = np.full(900, 42, np.int32)
+        cnt = rng.integers(0, 21, 900).astype(np.float32)
+    elif case == "all_distinct":
+        keys = np.sort(rng.choice(10_000, 700, replace=False)).astype(np.int32)
+        cnt = rng.integers(0, 21, 700).astype(np.float32)
+    elif case == "zero_counts":
+        keys = np.sort(rng.integers(0, 30, 600)).astype(np.int32)
+        cnt = np.zeros(600, np.float32)
+    elif case == "int32_float_cap":
+        keys = np.sort(rng.integers(0, 300, 3000)).astype(np.int32)
+        cnt = rng.integers(0, 21, 3000).astype(np.float32)
+        return T(keys), T(cnt), 4.0
+    else:  # int64 composite keys id * 2 + stream, a cap per entry
+        ids = rng.integers(0, 200, 2500).astype(np.int64)
+        keys = np.sort(ids * 2 + rng.integers(0, 2, 2500))
+        cnt = rng.integers(0, 21, 2500).astype(np.float32)
+        return T(keys), T(cnt), T(np.where(keys & 1, 1.0, 4.0).astype(np.float32))
+    return T(keys), T(cnt), 4.0
+
+
+@pytest.mark.parametrize("case", [
+    "single", "one_group", "all_distinct", "zero_counts", "int32_float_cap",
+    "int64_tensor_cap",
+])
+def test_sorted_scales_equal_scans(rng, case):
+    """Group scales found by searching the sorted keys equal the masked
+    scans' to the bit, on every stream shape the prep meets."""
+    keys, cnt, cap = _scales_case(rng, case)
+    got = apply_lib._sorted_scales(keys, cnt, 0.025, cap)
+    want = _scan_scales(keys, cnt, 0.025, cap)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 

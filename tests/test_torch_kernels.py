@@ -355,6 +355,74 @@ def test_mean_updates_wide_rows_under_apply_v2(cuda, monkeypatch):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+# -- the stream prep (sorted_stream_one / _two) at the benchmark's sizes --------
+
+
+def _scan_scales(keys_s, cnt_s, lr, cap):
+    """The group scales as masked scans compute them (the JAX package's
+    formula, in torch): the reference the prep's self-search is held to,
+    here and in ``test_torch_apply.py``."""
+    cnt_f = cnt_s.to(torch.float32)
+    cum = torch.cumsum(cnt_f, dim=0)
+    change = keys_s[1:] != keys_s[:-1]
+    true1 = torch.ones(1, dtype=torch.bool, device=keys_s.device)
+    start = torch.cat([true1, change])
+    end = torch.cat([change, true1])
+    inf = float("inf")
+    seg_lo = torch.cummax(torch.where(start, cum - cnt_f, -inf), dim=0).values
+    seg_hi = torch.cummin(torch.where(end, cum, inf).flip(0), dim=0).values.flip(0)
+    tot = seg_hi - seg_lo
+    if isinstance(cap, torch.Tensor):
+        capped = torch.minimum(tot, cap)
+    else:
+        capped = torch.clamp(tot, max=cap)
+    return lr * capped / torch.clamp(tot, min=1e-9)
+
+
+def _sgns_stream(gen, r, n, d, max_cnt, device):
+    """A stream shaped as an SGNS chunk-step's: ids over n nodes, a tenth
+    of them on 50 hot rows, integer counts, f32 payload rows."""
+    ids = np.where(gen.random(r) < 0.1, gen.integers(0, 50, r), gen.integers(0, n, r))
+    return (torch.from_numpy(ids.astype(np.int32)).to(device),
+            torch.from_numpy(gen.normal(size=(r, d)).astype(np.float32)).to(device),
+            torch.from_numpy(gen.integers(0, max_cnt + 1, r).astype(np.float32)).to(device))
+
+
+@pytest.mark.parametrize("merged", [False, True])
+def test_stream_prep_equals_scans_at_benchmark_size(cuda, merged):
+    """The W_in stream (R = 100,035: 1,235 walks of 81 tokens) and the
+    W_out stream (the same plus a 32,768-slot negative pool): ``ids_s``
+    and ``upd_s`` bit-equal to the scan formula's, and no host-device
+    sync in the prep."""
+    gen = np.random.default_rng(27)
+    n, d, lr = 1_000_000, 128, 0.025
+    ids, upd, cnt = _sgns_stream(gen, 100_035, n, d, 20, cuda)
+    if merged:
+        ids_b, upd_b, cnt_b = _sgns_stream(gen, 32_768, n, d, 200, cuda)
+        keys = torch.cat([ids.to(torch.int64) * 2, ids_b.to(torch.int64) * 2 + 1])
+        keys_s, order = torch.sort(keys, stable=True)
+        cap_s = torch.where((keys_s & 1) == 1, 1.0, 4.0)
+        scale = _scan_scales(keys_s, torch.cat([cnt, cnt_b])[order], lr, cap_s)
+        want_ids = (keys_s >> 1).to(torch.int32)
+        want_upd = torch.cat([upd, upd_b])[order] * scale[:, None]
+    else:
+        want_ids, order = torch.sort(ids, stable=True)
+        scale = _scan_scales(want_ids, cnt[order], lr, 4.0)
+        want_upd = upd[order] * scale[:, None]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        if merged:
+            ids_s, upd_s = apply_lib.sorted_stream_two(ids, upd, cnt, ids_b, upd_b, cnt_b,
+                                                       lr, 4.0, 1.0)
+        else:
+            ids_s, upd_s = apply_lib.sorted_stream_one(ids, upd, cnt, lr, 4.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(ids_s, want_ids)
+    assert torch.equal(upd_s.view(torch.int32), want_upd.view(torch.int32))
+
+
 # -- the windowed applier (csrc/apply_v2.cu) ----------------------------------
 
 
